@@ -6,39 +6,75 @@
 Phases, one JSON line each; any failure raises and the script exits
 non-zero without printing a result:
 
-1. build     — compile every CUDA kernel of the port from ``src/`` (nvcc,
-               sm_90a, one process per source, all at once).
-2. kernel    — each kernel against its plain PyTorch version on the card,
-               over the CPU tests' geometries and the full-width ones of the
-               dense and GQA archs (f32 tolerance 2e-5, bf16 2e-2).
-3. reference — the paged decode step through the kernel against the same
-               step on the CPU through the plain version, reduced
-               deepseek-7b in f32 (logits within 1e-3).
-4. serve     — ``PagedServeEngine`` serving deepseek-7b at full width and
-               depth (6.9 B parameters, seeded random bf16 weights): 8
-               requests sharing a 256-token prefix, one of them sampled.
-               Launch counts are zeroed just before this run and read just
-               after: the paged-attention kernel must have run once per
-               layer per tick.  The same trace is then served again,
-               untimed, to record its widest tick with every slot busy.
-5. parity    — the kernel against its plain version on the page pool and
-               page table that replay left behind (one layer).
-6. timing    — kernel, plain version and ``scaled_dot_product_attention``
-               (a yardstick the port never calls) at the serving run's
-               decode shape, L2 flushed before each launch, beside the
-               least time the card could take (its bound).
-7. profile   — where a serving tick's time goes: host wall time per tick
-               against device time per kernel (``torch.profiler``).
+1. build        — compile every CUDA kernel of the port from ``src/``
+                  (nvcc, sm_90a, one process per source, all at once).
+2. kernel       — the paged-attention kernel against its plain PyTorch
+                  version on the card, over the CPU tests' geometries and
+                  the full-width ones of the dense and GQA archs (f32
+                  tolerance 2e-5, bf16 2e-2).
+3. flash_kernel — the flash-attention kernel against its plain version:
+                  the ``tests/test_kernels.py`` sweep (S 128-512, f32 and
+                  bf16, causal and not), head dims 32-128, a tail S of 100;
+                  output (f32 2e-5, bf16 2e-2) and log-sum-exp (2e-5
+                  relative), and the gradients of its autograd function
+                  against autograd through the plain version (2e-5 / 2e-2
+                  of each gradient's largest entry).
+4. reference    — the paged decode step through the kernel against the same
+                  step on the CPU through the plain version, reduced
+                  deepseek-7b in f32 (logits within 1e-3).
+5. serve        — ``PagedServeEngine`` serving deepseek-7b at full width and
+                  depth (6.9 B parameters, seeded random bf16 weights): 8
+                  requests sharing a 256-token prefix, one of them sampled.
+                  Launch counts are zeroed just before this run and read
+                  just after: the paged-attention kernel must have run once
+                  per layer per tick.  The same trace is then served again,
+                  untimed, to record its widest tick with every slot busy.
+6. parity       — the paged kernel against its plain version on the page
+                  pool and page table that replay left behind (one layer).
+7. timing       — paged kernel, plain version and
+                  ``scaled_dot_product_attention`` (a yardstick the port
+                  never calls) at the serving run's decode shape, L2
+                  flushed before each launch, beside the least time the
+                  card could take (its bound).
+8. profile      — where a serving tick's time goes: host wall time per tick
+                  against device time per kernel (``torch.profiler``).
+9. train_parity — full-width deepseek-7b cut to 2 layers, seq 256, batch 1:
+                  the loss and every parameter's gradient through the flash
+                  kernel against the same step with the plain version
+                  called on the card (relative norm error within 2e-2).
+10. train       — full-width deepseek-7b cut to 8 layers (2.46 B
+                  parameters; AdamW state at 16 bytes per parameter does
+                  not fit 30 layers in 80 GB), seq 2048, batch 4, remat
+                  full: the first 4 steps of the default schedule (1000
+                  steps, warmup 100) through ``make_train_step`` on the
+                  port's ``DataPipeline``.  Finite losses, the last below
+                  the first; the flash kernel launched twice per layer per
+                  step (forward and remat recompute), counts zeroed just
+                  before.  One more step under ``torch.profiler`` shows
+                  where a step's time goes.  Then the same 4 steps from
+                  the same seed with the plain version on the card: each
+                  loss within 1e-3 relative of the kernel run's.
+11. train_cli   — ``launch/train.py::train`` on the card at ``reduced()``
+                  scale: a run cut at a checkpoint and resumed reproduces
+                  the uninterrupted run's losses.
+12. flash_timing — flash kernel, plain version and
+                  ``scaled_dot_product_attention(is_causal=True)`` (a
+                  yardstick the port never calls) at the training shape,
+                  q, k, v [128, 2048, 128] bf16 causal, L2 flushed before
+                  each launch, beside the flops bound.
 
 Then the ``kernels`` summary line, the card's name and power limit as
 ``nvidia-smi`` reports them, and last ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -48,8 +84,15 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import ALL_ARCHS, reduced  # noqa: E402
+from repro_torch.configs.base import (RunConfig, ShapeConfig,  # noqa: E402
+                                      TrainConfig)
+from repro_torch.data.pipeline import DataConfig, DataPipeline  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    FlashAttention, flash_attention_cuda, flash_attention_plain,
+    logsumexp_plain)
+from repro_torch.launch.train import train as train_cli  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention_cuda, paged_attention_plain)
 from repro_torch.models import build  # noqa: E402
@@ -57,6 +100,8 @@ from repro_torch.models import params as P  # noqa: E402
 from repro_torch.models.decode import decode_paged_chunk  # noqa: E402
 from repro_torch.serve import (PagedServeEngine, Request,  # noqa: E402
                                SamplingParams)
+from repro_torch.train.step import (init_train_state,  # noqa: E402
+                                    make_train_step)
 
 ARCH = "deepseek-7b"
 SLOTS, BLOCK, CHUNK, MAX_LEN = 4, 16, 16, 1024
@@ -71,7 +116,16 @@ FULL_WIDTH = [("deepseek-7b", 32, 1, 128), ("phi3-medium-14b", 10, 4, 128),
               ("deepseek-coder-33b", 8, 7, 128),
               ("granite-moe-1b-a400m", 8, 2, 64), ("zamba2-2.7b", 32, 1, 80),
               ("phi3-mini-3.8b", 32, 1, 96)]
-KERNEL_REPLACES = {"paged_attention": "src/repro/kernels/paged_attention.py:102"}
+KERNEL_REPLACES = {
+    "paged_attention": "src/repro/kernels/paged_attention.py:102",
+    "flash_attention": "src/repro/kernels/flash_attention.py:76"}
+KERNEL_SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu"
+                  for name in KERNEL_REPLACES}
+# training: full width, depth cut to fit AdamW's 16 bytes per parameter
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 8, 2048, 4, 4
+PARITY_LAYERS, PARITY_SEQ = 2, 256
+GRAD_TOL = 2e-2   # relative norm error of loss and gradients, bf16
+TRAJ_TOL = 1e-3   # relative error of each training loss, kernel vs plain
 
 
 def emit(obj: dict) -> None:
@@ -500,6 +554,322 @@ def phase_parity_and_timing(eng, best, dev):
     return err, timing
 
 
+# ------------------------------------------------------------ flash kernel
+
+# (bh, s, d): the tests/test_kernels.py:50-53 sweep (its S; the block
+# shapes are the TPU kernel's own), the dense archs' head dims, a tail S
+FLASH_SWEEP = [(3, s, 64) for s in (128, 256, 512)]
+FLASH_HEAD_DIMS = [(2, 256, d) for d in (32, 64, 80, 96, 128)]
+FLASH_TAIL = [(4, 100, 128), (2, 100, 64)]
+FLASH_GRAD_CASES = [(4, 256, 64), (2, 512, 128), (2, 100, 96)]
+
+
+def flash_case(bh, s, d, dtype, seed, dev, grad=False):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn((bh, s, d), generator=gen, device=dev)
+                 .to(dtype).requires_grad_(grad) for _ in range(3))
+
+
+def max_rel_to_max(got, want) -> float:
+    """max |got - want| over max |want|."""
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def phase_flash_kernel(dev) -> dict:
+    n_cases, worst, lse_worst, grad_worst = 0, {}, 0.0, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tol, err = TOL[dtype], 0.0
+        for causal in (True, False):
+            for bh, s, d in FLASH_SWEEP + FLASH_HEAD_DIMS + FLASH_TAIL:
+                q, k, v = flash_case(bh, s, d, dtype, n_cases, dev)
+                out, lse = flash_attention_cuda(q, k, v, causal=causal)
+                want = flash_attention_plain(q, k, v, causal=causal).float()
+                want_lse = logsumexp_plain(q, k, causal=causal)
+                torch.cuda.synchronize()
+                check(bool(torch.isfinite(out.float()).all()),
+                      f"non-finite flash output {(bh, s, d)} {dtype}")
+                err = max(err, float((out.float() - want).abs().max()))
+                lse_worst = max(lse_worst, float(
+                    ((lse - want_lse).abs() / want_lse.abs().clamp_min(1))
+                    .max()))
+                check(torch.allclose(out.float(), want, rtol=tol, atol=tol),
+                      f"flash kernel != plain: {(bh, s, d)} {dtype} "
+                      f"causal={causal}")
+                check(torch.allclose(lse, want_lse, rtol=2e-5, atol=2e-5),
+                      f"flash log-sum-exp != plain: {(bh, s, d)} {dtype} "
+                      f"causal={causal}")
+                n_cases += 1
+        g_err = 0.0
+        for bh, s, d in FLASH_GRAD_CASES:
+            d_out = flash_case(bh, s, d, dtype, 1000 + n_cases, dev)[0]
+            grads = []
+            for fn in (lambda q, k, v: FlashAttention.apply(q, k, v, True),
+                       lambda q, k, v: flash_attention_plain(q, k, v)):
+                q, k, v = flash_case(bh, s, d, dtype, n_cases, dev, grad=True)
+                fn(q, k, v).backward(d_out)
+                grads.append((q.grad, k.grad, v.grad))
+            for got, want in zip(*grads):
+                e = max_rel_to_max(got, want)
+                g_err = max(g_err, e)
+                check(e <= tol, f"flash gradients != plain autograd: "
+                                f"{(bh, s, d)} {dtype}: {e}")
+            n_cases += 1
+        name = str(dtype).replace("torch.", "")
+        worst[name], grad_worst[name] = err, g_err
+    emit({"phase": "flash_kernel", "cases": n_cases, "max_abs_err": worst,
+          "lse_max_rel_err": lse_worst,
+          "grad_max_err_rel_to_max": grad_worst,
+          "tolerance": {"float32": TOL[torch.float32],
+                        "bfloat16": TOL[torch.bfloat16], "lse": 2e-5},
+          "head_dims": sorted({d for _, _, d in FLASH_SWEEP + FLASH_HEAD_DIMS
+                               + FLASH_TAIL})})
+    return worst
+
+
+# ---------------------------------------------------------------- training
+
+
+def loss_and_grads(model, params, batch):
+    live = P.tree_map(lambda t: t.detach().requires_grad_(), params)
+    loss, _ = model.loss(live, batch, remat="none", z_loss=1e-4)
+    loss.backward()
+    return loss.detach(), P.leaves(P.tree_map(lambda t: t.grad, live))
+
+
+@contextlib.contextmanager
+def plain_flash():
+    """The model's flash calls go to the plain version, on the card: the
+    reference side of the parity phase (the port itself has no switch)."""
+    saved = ops.flash_attention
+    ops.flash_attention = (lambda q, k, v, *, causal=True:
+                           flash_attention_plain(q, k, v, causal=causal))
+    try:
+        yield
+    finally:
+        ops.flash_attention = saved
+
+
+def rel_norm(got, want) -> float:
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def phase_train_parity(dev) -> None:
+    cfg = dataclasses.replace(ALL_ARCHS[ARCH], n_layers=PARITY_LAYERS)
+    model = build(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(SEED),
+                               dev)
+    batch = model.sample_batch(ShapeConfig("parity", "train", PARITY_SEQ, 1),
+                               SEED, dev)
+    ops.reset_launches()
+    loss_k, grads_k = loss_and_grads(model, params, batch)
+    launches = ops.LAUNCHES["flash_attention"]
+    with plain_flash():
+        loss_p, grads_p = loss_and_grads(model, params, batch)
+    torch.cuda.synchronize()
+    check(launches == PARITY_LAYERS,
+          f"flash_attention launched {launches} times, expected one per "
+          f"layer ({PARITY_LAYERS})")
+    loss_err = rel_norm(loss_k, loss_p)
+    errs = [rel_norm(a, b) for a, b in zip(grads_k, grads_p)]
+    check(bool(torch.isfinite(loss_k)) and loss_err <= GRAD_TOL,
+          f"loss through the kernel {float(loss_k)} vs plain "
+          f"{float(loss_p)}")
+    check(max(errs) <= GRAD_TOL,
+          f"gradients through the kernel vs plain: max rel {max(errs)}")
+    emit({"phase": "train_parity", "arch": cfg.name, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "seq": PARITY_SEQ, "batch": 1,
+          "loss_kernel": float(loss_k), "loss_plain": float(loss_p),
+          "loss_rel_err": loss_err, "grad_leaves": len(errs),
+          "grad_max_rel_norm_err": max(errs), "tolerance": GRAD_TOL,
+          "flash_launches": launches})
+
+
+def kernel_kind(name: str) -> str:
+    """A device kernel's kind, from its name, for the step's breakdown."""
+    low = name.lower()
+    if "flash_attention" in low:
+        return "flash_attention"
+    if any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass")):
+        return ("matmul_f32" if "f32f32" in low or "sgemm" in low
+                else "matmul_bf16")
+    if "reduce" in low:
+        return "reduction"
+    if "copy" in low or "memcpy" in low or "memset" in low:
+        return "copy"
+    if "elementwise" in low:
+        return "elementwise"
+    return "other"
+
+
+def phase_train(dev) -> tuple[dict, float]:
+    """Full-width deepseek-7b at 8 layers: 4 steps through the port's train
+    step, launch counts zeroed just before and read just after; then one
+    more step under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = dataclasses.replace(ALL_ARCHS[ARCH], n_layers=TRAIN_LAYERS)
+    model = build(cfg)
+    # the first steps of the default schedule (1000 steps, warmup 100);
+    # at this width and 8,192 tokens a batch they already oscillate, the
+    # optimizer's doing, as the plain-version run below shows (PERF.md)
+    run = RunConfig(cfg, ShapeConfig("train", "train", TRAIN_SEQ,
+                                     TRAIN_BATCH), TrainConfig(remat="full"))
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = init_train_state(
+        model, torch.Generator(device=dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in P.leaves(state.params))
+    step_fn = make_train_step(model, run)
+    data = DataPipeline(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                                   seed=SEED))
+    batches = [next(data)[1] for _ in range(TRAIN_STEPS + 1)]
+    data.close()
+
+    def run_steps(state):
+        losses, step_s = [], []
+        for host_batch in batches[:TRAIN_STEPS]:
+            t0 = time.perf_counter()
+            batch = {k: torch.tensor(a, device=dev)
+                     for k, a in host_batch.items()}
+            state, metrics = step_fn(state, batch)
+            losses.append(float(metrics["loss"]))   # the step's host sync
+            step_s.append(time.perf_counter() - t0)
+        return state, losses, step_s
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    state, losses, step_s = run_steps(state)
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+
+    check(all(np.isfinite(losses)), f"non-finite training loss {losses}")
+    check(losses[-1] < losses[0], f"training loss did not fall: {losses}")
+    expected = 2 * TRAIN_LAYERS * TRAIN_STEPS
+    check(launches["flash_attention"] == expected,
+          f"flash_attention launched {launches['flash_attention']} times, "
+          f"expected 2 x layers x steps = {expected} (forward and remat "
+          f"recompute)")
+    check(launches["paged_attention"] == 0, "paged attention ran in training")
+
+    steady_ms = statistics.median(step_s[1:]) * 1e3
+    batch = {k: torch.tensor(a, device=dev)
+             for k, a in batches[TRAIN_STEPS].items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+    by_kernel = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0.0)
+        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + us
+    device_ms = sum(by_kernel.values()) / 1e3
+    check(device_ms > 0, "the profiler saw no device time")
+    by_kind = {}
+    for name, us in by_kernel.items():
+        kind = kernel_kind(name)
+        by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3
+    flash_ms = by_kind.get("flash_attention", 0.0)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+    # the same steps from the same seed with the plain version on the
+    # card: the kernel's training trajectory must track it
+    del state, metrics
+    torch.cuda.empty_cache()
+    with plain_flash():
+        _, plain_losses, _ = run_steps(init_train_state(
+            model, torch.Generator(device=dev).manual_seed(SEED), dev))
+    traj_err = max(abs(a - b) / abs(b) for a, b in zip(losses, plain_losses))
+    check(traj_err <= TRAJ_TOL, f"losses through the kernel {losses} vs the "
+                                f"plain version {plain_losses}")
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    emit({"phase": "train", "arch": cfg.name, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "params": n_params, "seq": TRAIN_SEQ,
+          "batch": TRAIN_BATCH, "remat": "full", "init_s": round(init_s, 2),
+          "losses": losses, "plain_losses": plain_losses,
+          "loss_rel_err_vs_plain": traj_err, "tolerance": TRAJ_TOL,
+          "step_ms": [1e3 * t for t in step_s],
+          "steady_ms_per_step": steady_ms,
+          "tokens_per_s": tokens / steady_ms * 1e3,
+          "peak_mem_gb": peak_gb, "launches": launches,
+          "profile": {"device_ms_per_step": device_ms,
+                      "device_busy_share": device_ms / steady_ms,
+                      "flash_kernel_ms_per_step": flash_ms,
+                      "flash_share_of_device": flash_ms / device_ms,
+                      "ms_by_kind": by_kind,
+                      "top_kernels_ms": {k[:70]: v / 1e3 for k, v in top}}})
+    return launches, steady_ms
+
+
+def phase_train_cli() -> None:
+    """The launcher on the card at reduced scale: cut at the step-2
+    checkpoint and resumed, it gives the uninterrupted run's losses."""
+    kw = dict(steps=4, total_steps=4, ckpt_every=2, seq_len=128,
+              global_batch=4, device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        full = train_cli(ARCH, out_dir=f"{tmp}/full", **kw)
+        first = train_cli(ARCH, out_dir=f"{tmp}/cut", **dict(kw, steps=2))
+        resumed = train_cli(ARCH, out_dir=f"{tmp}/cut", resume=True, **kw)
+    cut = first["losses"] + resumed["losses"]
+    diff = max(abs(a - b) / abs(b) for a, b in zip(cut, full["losses"]))
+    check(len(cut) == 4 and diff <= 1e-5,
+          f"resumed losses {cut} != uninterrupted {full['losses']}")
+    check(full["loss_decreased"], f"launcher losses {full['losses']}")
+    check(resumed["audit"]["trace"].get("ckpt-restore") == 1, "no restore")
+    emit({"phase": "train_cli", "arch": full["arch"], "losses": full["losses"],
+          "resumed_losses": cut, "max_rel_diff": diff,
+          "bit_exact": cut == full["losses"],
+          "trace": full["audit"]["trace"]})
+
+
+def phase_flash_timing(dev) -> tuple[float, dict]:
+    """The kernel at the training call's shape: B·H = 4 x 32, S 2048,
+    head dim 128, bf16, causal."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+    bh, s, d = TRAIN_BATCH * ALL_ARCHS[ARCH].n_heads, TRAIN_SEQ, 128
+    q, k, v = flash_case(bh, s, d, torch.bfloat16, SEED, dev)
+    out, _ = flash_attention_cuda(q, k, v, causal=True)
+    want = flash_attention_plain(q, k, v, causal=True)
+    lib = sdpa(q[None], k[None], v[None], is_causal=True)[0]
+    torch.cuda.synchronize()
+    err = float((out.float() - want.float()).abs().max())
+    # both round one fp32 result to bf16, so they may differ by one bf16
+    # step at most: 2^-7 of the value, plus 1e-4 for fp32 sum order
+    check(torch.allclose(out.float(), want.float(), rtol=2 ** -7, atol=1e-4),
+          f"flash kernel != plain at the training shape: {err}")
+    lib_err = float((lib.float() - want.float()).abs().max())
+    del out, want, lib
+    # the causal rows' keys: S(S+1)/2 per row block, 4·D flops each (QK^T
+    # and PV); each input read once, the output and the log-sum-exp
+    # written once
+    flops = 2 * bh * d * s * (s + 1)
+    bytes_ = 4 * bh * s * d * q.element_size() + bh * s * 4
+    t_ops = flops / PEAK_OPS_PER_S[torch.bfloat16] * 1e3
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_kernel = time_cold(lambda: flash_attention_cuda(q, k, v, causal=True),
+                         dev, n=25)
+    t_plain = time_cold(lambda: flash_attention_plain(q, k, v, causal=True),
+                        dev, n=25)
+    t_lib = time_cold(lambda: sdpa(q[None], k[None], v[None],
+                                   is_causal=True), dev, n=25)
+    bound = max(t_ops, t_bytes)
+    timing = {"phase": "flash_timing", "shape": [bh, s, d],
+              "dtype": "bfloat16", "causal": True, "ms": t_kernel,
+              "plain_ms": t_plain, "library_ms": t_lib,
+              "library": "scaled_dot_product_attention(is_causal=True)",
+              "max_abs_err": err, "library_max_abs_err": lib_err,
+              "bound_ms": bound,
+              "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+              "flops": flops, "bytes": bytes_,
+              "achieved_tflops": flops / t_kernel / 1e9,
+              "bound_share": bound / t_kernel, "gpu": nvidia_smi()}
+    emit(timing)
+    return err, timing
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -519,19 +889,29 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build()
     phase_kernel(dev)
+    phase_flash_kernel(dev)
     phase_reference(dev)
     model, params, replay, best, launches = phase_serve(dev)
     err, timing = phase_parity_and_timing(replay, best, dev)
-    del replay
+    del replay, best
     phase_profile(model, params, dev)
+    del model, params          # free the serving model before training
+    torch.cuda.empty_cache()
+    phase_train_parity(dev)
+    torch.cuda.empty_cache()
+    train_launches, _ = phase_train(dev)
+    torch.cuda.empty_cache()
+    phase_train_cli()
+    flash_err, flash = phase_flash_timing(dev)
+    rows = {"paged_attention": (launches["paged_attention"], err, timing),
+            "flash_attention": (train_launches["flash_attention"], flash_err,
+                                flash)}
     emit({"kernels": [{
-        "name": "paged_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
-        "replaces": KERNEL_REPLACES["paged_attention"],
-        "launches": launches["paged_attention"], "max_abs_err": err,
-        "ms": timing["ms"], "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"]}],
+        "name": name, "route": "cuda", "source": KERNEL_SOURCES[name],
+        "replaces": KERNEL_REPLACES[name], "launches": n,
+        "max_abs_err": e, "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"]} for name, (n, e, t) in rows.items()],
         "seconds": round(time.perf_counter() - t0, 1)})
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,11 +3,15 @@
 Pure data, copied rather than imported so that the port never loads the
 JAX package.  Field names, defaults and ``reduced()`` match the reference
 exactly; ``tests/test_torch_layers.py`` holds the two copies equal.
+``ShapeConfig`` and ``TrainConfig`` are copied whole; ``RunConfig`` keeps the
+fields a single-GPU run reads (the mesh and sharding rules wait for the
+multi-GPU slice; ``use_pallas`` has no counterpart, since the port picks a
+kernel by the tensors' device).
 """
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any
 
 
@@ -95,6 +99,49 @@ class ModelConfig:
         from repro_torch.models import params as P  # local: avoid a cycle
 
         return P.count(P.param_specs(self))
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell from the assignment."""
+
+    name: str       # train_4k | prefill_32k | decode_32k | long_500k
+    kind: str       # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+    @property
+    def is_train(self) -> bool:
+        return self.kind == "train"
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    z_loss: float = 1e-4
+    seed: int = 0
+    # remat: 'none' | 'full' | 'selective' (save only block boundaries)
+    remat: str = "full"
+    # microbatching (gradient accumulation) — 0 disables
+    microbatches: int = 0
+    # gradient compression: 'none' | 'int8_ef'
+    grad_compress: str = "none"
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """Everything one single-GPU run needs."""
+
+    model: ModelConfig
+    shape: ShapeConfig
+    train: TrainConfig = field(default_factory=TrainConfig)
 
 
 def reduced(model: ModelConfig, **overrides: Any) -> ModelConfig:

@@ -12,10 +12,12 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.flash_attention import (FlashAttention,
+                                                 flash_attention_plain)
 from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                  paged_attention_plain)
 
-LAUNCHES: dict[str, int] = {"paged_attention": 0}
+LAUNCHES: dict[str, int] = {"paged_attention": 0, "flash_attention": 0}
 
 
 def reset_launches() -> None:
@@ -36,3 +38,17 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
         LAUNCHES["paged_attention"] += 1
         return out
     raise ValueError(f"paged_attention has no kernel for device {q.device}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """Blockwise attention over ``[BH, S, D]`` (the training forward); see
+    ``kernels.flash_attention`` for the shapes.  On a card the kernel runs
+    inside ``FlashAttention``, whose backward is written in torch ops."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal)
+    if q.device.type == "cuda":
+        out = FlashAttention.apply(q, k, v, causal)
+        LAUNCHES["flash_attention"] += 1
+        return out
+    raise ValueError(f"flash_attention has no kernel for device {q.device}")

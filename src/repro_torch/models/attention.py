@@ -1,6 +1,15 @@
-"""GQA decode attention: the paged serving path and the contiguous oracle.
+"""GQA attention: full-sequence self-attention (training) and the decode
+paths (the paged serving path and the contiguous oracle).
 
-Ports the decode side of ``repro.models.attention`` at tp=1:
+Ports ``repro.models.attention`` at tp=1:
+
+* ``full_attention`` — causal self-attention over whole sequences from
+  position 0, as the dense stack calls it.  Calls that meet the
+  reference's flash condition go to ``kernels.ops.flash_attention`` (the
+  CUDA kernel on a card, its plain version on the CPU); the rest take the
+  reference's q-chunked ``_attend``.  Cross-attention, non-causal
+  (encoder) attention, ``pos0 > 0`` and ``return_kv`` wait for the
+  vlm/encdec slice.
 
 * ``paged_chunk_decode_attention`` — C query tokens per lane, KV written
   and attended through each lane's page table (the paged engine's step);
@@ -18,12 +27,86 @@ points.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import head_geom, rmsnorm, rope
 
 NEG_INF = -1e9
+
+
+def _project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                 pos: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Self-attention projections: q [B,S,H,hd], k and v [B,S,KV,hd], with
+    the optional per-head q/k norm and RoPE at positions ``pos`` [S]."""
+    geom = head_geom(cfg)
+    hd, kv = geom.head_dim, geom.n_kv
+    b, s, _ = x.shape
+    q = (x @ p["wq"]).reshape(b, s, geom.h_run, hd)
+    k = (x @ p["wk"]).reshape(b, s, kv, hd)
+    v = (x @ p["wv"]).reshape(b, s, kv, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_scale"], q, cfg.norm_eps)
+        k = rmsnorm(p["k_scale"], k, cfg.norm_eps)
+    if cfg.rope_theta > 0:
+        q = rope(q, pos, cfg.rope_theta)
+        k = rope(k, pos, cfg.rope_theta)
+    return q, k, v
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            mask: torch.Tensor, hd: int) -> torch.Tensor:
+    """q [B,Sq,H,hd], k/v [B,Sk,H,hd] (kv repeated to the q heads) ->
+    [B,Sq,H,hd].  fp32 scores and softmax; P rounded to v's dtype before
+    P·V, as the reference's jnp path does."""
+    scores = torch.einsum("bqhd,bshd->bhqs", q.float(), k.float())
+    scores = scores * (hd ** -0.5)
+    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bhqs,bshd->bqhd", probs, v)
+
+
+def full_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
+                   chunk: int = 1024) -> torch.Tensor:
+    """Causal self-attention over whole sequences from position 0:
+    x [B,S,D] -> y [B,S,D].
+
+    kv is repeated to the q-head count and every head runs as one row of a
+    ``[B·H, S, hd]`` problem.  Where the reference would take its flash
+    kernel (``S % min(128, S) == 0``; pos0 = 0, self-attention and tp = 1
+    always hold here), the call goes to ``kops.flash_attention``.  Other
+    lengths take ``_attend``, split into query chunks of ``chunk`` rows
+    when S is a larger multiple of it, each chunk recomputed in the
+    backward (the reference's remat of its scan body)."""
+    geom = head_geom(cfg)
+    hd, h = geom.head_dim, geom.h_run
+    b, s, _ = x.shape
+    pos = torch.arange(s, device=x.device)
+    q, k, v = _project_qkv(cfg, p, x, pos)
+    k_r = k.repeat_interleave(geom.g_pad, dim=2)
+    v_r = v.repeat_interleave(geom.g_pad, dim=2)
+
+    if s % min(128, s) == 0:
+        def heads_first(t):
+            return t.transpose(1, 2).reshape(b * h, s, hd).contiguous()
+        out = kops.flash_attention(heads_first(q), heads_first(k_r),
+                                   heads_first(v_r), causal=True)
+        out = out.reshape(b, h, s, hd).transpose(1, 2)
+        return out.reshape(b, s, h * hd) @ p["wo"]
+
+    def block(q_blk: torch.Tensor, q_pos: torch.Tensor) -> torch.Tensor:
+        mask = (pos[None, :] <= q_pos[:, None])[None, None]
+        return _attend(q_blk, k_r, v_r, mask, hd)
+
+    if s > chunk and s % chunk == 0:
+        out = torch.cat([checkpoint(block, q[:, i:i + chunk],
+                                    pos[i:i + chunk], use_reentrant=False)
+                         for i in range(0, s, chunk)], dim=1)
+    else:
+        out = block(q, pos)
+    return out.reshape(b, s, h * hd) @ p["wo"]
 
 
 def paged_write_index(page_table: torch.Tensor, pos: torch.Tensor,

@@ -1,4 +1,4 @@
-"""Layer primitives on tensors: norms, RoPE, SwiGLU, embeddings.
+"""Layer primitives on tensors: norms, RoPE, SwiGLU, embeddings, the loss.
 
 Ports ``repro.models.layers`` at tensor-parallel width 1.  There the
 sequence-parallel helpers ``sp_col_projects`` and ``rs_project`` reduce to
@@ -79,6 +79,29 @@ def logits_from(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     argmax runs over the padded ids too)."""
     w = p["tok"].T if cfg.tie_embeddings else p["head"]
     return (x @ w).float()
+
+
+# ---------------------------------------------------------------- loss
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  vocab_size: int, z_loss: float = 0.0
+                  ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Mean next-token CE over all positions, in fp32; the padded vocab ids
+    are masked out, and ``z_loss`` adds ``z_loss * mean(lse**2)``."""
+    v_pad = logits.shape[-1]
+    if v_pad > vocab_size:
+        pad = torch.arange(v_pad, device=logits.device) >= vocab_size
+        logits = logits.masked_fill(pad, -1e9)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    loss = (lse - gold).mean()
+    aux = {"nll": loss}
+    if z_loss:
+        zl = z_loss * (lse ** 2).mean()
+        aux["z_loss"] = zl
+        loss = loss + zl
+    return loss, aux
 
 
 # ---------------------------------------------------------------- GQA geometry

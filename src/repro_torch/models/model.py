@@ -1,19 +1,24 @@
 """Public model API: one object per architecture config.
 
-Ports the serving subset of ``repro.models.Model`` for the dense family:
-the methods the two engines call.  Training (``loss``) and full-sequence
-``prefill`` belong to later slices of the port.  A ``Model`` holds no
-tensors; weights and caches are passed in, and caches are updated in
+Ports ``repro.models.Model`` for the dense family: the training loss, the
+train half of the batch declaration, and the methods the two serving
+engines call.  Full-sequence ``prefill`` belongs to a later slice of the
+port.  The reference's ``use_pallas`` switch has no counterpart: the
+tensors' device picks the kernel or its plain version.  A ``Model`` holds
+no tensors; weights and caches are passed in, and caches are updated in
 place, so the decode methods return only what the reference returns
 beside its new cache.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import decode as D
 from repro_torch.models import params as P
+from repro_torch.models import stack
+from repro_torch.models.layers import cross_entropy
 
 
 class Model:
@@ -27,6 +32,36 @@ class Model:
     def init_params(self, generator: torch.Generator,
                     device: str | torch.device) -> dict:
         return P.initialize(self.param_specs(), generator, device)
+
+    # ---- training ----
+    def loss(self, params: dict, batch: dict, *, remat: str = "none",
+             z_loss: float = 0.0) -> tuple[torch.Tensor, dict]:
+        logits, metrics = stack.forward(self.cfg, params, batch, remat=remat)
+        loss, aux = cross_entropy(logits, batch["labels"],
+                                  self.cfg.vocab_size, z_loss)
+        metrics.update(aux)
+        return loss, metrics
+
+    # ---- batch declaration (train) ----
+    def input_specs(self, shape: ShapeConfig) -> dict[str, tuple]:
+        """``{name: (shape, dtype)}`` of a training batch (dense)."""
+        if shape.kind != "train":
+            raise ValueError(f"the port declares training batches only, got "
+                             f"{shape.kind!r}")
+        tok = ((shape.global_batch, shape.seq_len), torch.int32)
+        return {"tokens": tok, "labels": tok}
+
+    def sample_batch(self, shape: ShapeConfig, seed: int,
+                     device: str | torch.device = "cpu"
+                     ) -> dict[str, torch.Tensor]:
+        """A random batch matching ``input_specs``: token ids uniform over
+        the real vocab, drawn in declaration order from numpy's
+        ``default_rng(seed)`` (the reference draws from ``jax.random``)."""
+        rng = np.random.default_rng(seed)
+        return {name: torch.tensor(
+                    rng.integers(0, self.cfg.vocab_size, size=dims),
+                    dtype=dtype, device=device)
+                for name, (dims, dtype) in self.input_specs(shape).items()}
 
     # ---- serving: contiguous (oracle) ----
     def decode_step(self, params: dict, cache: dict, token: torch.Tensor,

@@ -1,0 +1,57 @@
+"""The dense block stack: full-sequence forward for training.
+
+Ports the dense branch of ``repro.models.stack.forward``: embed, then per
+layer [RMSNorm, self-attention, residual, RMSNorm, SwiGLU, residual], then
+the final norm and fp32 logits over the padded vocab.  The reference scans
+over the stacked ``[L, ...]`` layer parameters; here a Python loop walks
+them, each leaf split once with ``unbind`` so the backward stacks the
+layers' gradients in one step.  Other families are later slices.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import params as P
+from repro_torch.models.attention import full_attention
+from repro_torch.models.layers import (embed_tokens, logits_from, rmsnorm,
+                                       swiglu)
+
+
+def _remat(fn: Callable, mode: str) -> Callable:
+    """``full`` recomputes each layer in the backward from its input (the
+    reference's ``nothing_saveable``).  ``dots`` maps to ``none``: the
+    reference's policy saves every matmul output and recomputes only the
+    elementwise ops, which PyTorch's checkpoint cannot select; the values
+    are the same either way, only the memory differs."""
+    if mode in ("none", "dots"):
+        return fn
+    if mode == "full":
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    raise ValueError(f"unknown remat mode {mode}")
+
+
+def _dense_block(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    # The reference's ``_res`` (a sharding constraint and a pin of the
+    # cotangent to bf16) is the identity here: at tp=1 nothing is sharded,
+    # and a gradient in PyTorch already takes its tensor's dtype.
+    h = x + full_attention(cfg, p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps))
+    return h + swiglu(p["mlp"], rmsnorm(p["ln2"], h, cfg.norm_eps))
+
+
+def forward(cfg: ModelConfig, params: dict, batch: dict, *,
+            remat: str = "none") -> tuple[torch.Tensor, dict]:
+    """Full-sequence forward -> (logits [B,S,Vpad] fp32, metrics)."""
+    if cfg.family != "dense":
+        raise ValueError(f"the port's stack runs the dense family only, "
+                         f"got {cfg.family!r} ({cfg.name})")
+    x = embed_tokens(params["embed"], batch["tokens"])
+    per_layer = P.tree_map(lambda t: t.unbind(0), params["layers"])
+    body = _remat(lambda x, p: _dense_block(cfg, p, x), remat)
+    for i in range(cfg.n_layers):
+        x = body(x, P.tree_map(lambda ts: ts[i], per_layer))
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return logits_from(params["embed"], cfg, x), {}

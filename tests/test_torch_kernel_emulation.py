@@ -9,8 +9,9 @@ kernel's C entry point, which is called with CPU tensors exactly as the
 wrapper calls it on the card.  Shared memory starts as NaN, so a read of
 an unwritten slot shows.
 
-This holds the kernel's indexing, masking, online softmax and merge to
-the plain version before it ever runs on a GPU.  It says nothing of what ``nvcc``
+This holds each kernel's indexing, masking, online softmax and merge to
+its plain version before it ever runs on a GPU: the paged-attention kernel
+and the flash-attention kernel (output and log-sum-exp).  It says nothing of what ``nvcc``
 accepts, of timing, or of the memory model (the stand-in is sequentially
 consistent).  Skips where no C++20 compiler is found.
 """
@@ -24,6 +25,8 @@ import pytest
 import torch
 
 from repro_torch.kernels.build import CSRC
+from repro_torch.kernels.flash_attention import (flash_attention_plain,
+                                                 logsumexp_plain)
 from repro_torch.kernels.paged_attention import paged_attention_plain
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -47,9 +50,13 @@ using std::min;
 #define __forceinline__ inline
 #define __launch_bounds__(x)
 #define __restrict__
+struct uint2 { unsigned x, y; };
 struct uint4 { unsigned x, y, z, w; };
 struct float4 { float x, y, z, w; };
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) {
+  return {a, b, c, d};
+}
+inline float4 make_float4(float a, float b, float c, float d) {
   return {a, b, c, d};
 }
 inline float __uint_as_float(unsigned x) { float f; memcpy(&f, &x, 4); return f; }
@@ -126,17 +133,16 @@ _REWRITES = (
 )
 
 
-@pytest.fixture(scope="module")
-def emulated(tmp_path_factory):
-    """The paged-attention kernel source built for the CPU stand-in."""
+def _build_emulated(name, out):
+    """Compile ``csrc/<name>.cu`` against the stand-in; returns the library,
+    or skips where no C++20 compiler is found."""
     cxx = shutil.which("g++") or shutil.which("clang++")
     if cxx is None:
         pytest.skip("no C++ compiler to build the emulated kernel")
-    src = (CSRC / "paged_attention.cu").read_text()
+    src = (CSRC / f"{name}.cu").read_text()
     for pattern, repl in _REWRITES:
         src, n = re.subn(pattern, repl, src)
         assert n == 1, f"expected one {pattern!r} in the kernel source"
-    out = tmp_path_factory.mktemp("emulated")
     (out / "cuda_standin.h").write_text(_CUDA_STANDIN)
     (out / "kernel.cpp").write_text(src)
     lib = out / "libkernel.so"
@@ -146,7 +152,14 @@ def emulated(tmp_path_factory):
     if r.returncode != 0 and "barrier" in r.stderr:
         pytest.skip(f"{cxx} lacks C++20 <barrier>")
     assert r.returncode == 0, r.stderr[-4000:]
-    fn = ctypes.CDLL(str(lib)).paged_attention_launch
+    return ctypes.CDLL(str(lib))
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """The paged-attention kernel source built for the CPU stand-in."""
+    fn = _build_emulated("paged_attention", tmp_path_factory.mktemp(
+        "emulated")).paged_attention_launch
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -223,3 +236,62 @@ def test_emulated_kernel_caps_n_new_at_chunk(emulated, dtype):
     want = paged_attention_plain(q, k, v, pt, pos, n_new)
     torch.testing.assert_close(out.float(), want.float(), rtol=TOL[dtype],
                                atol=TOL[dtype])
+
+
+# ------------------------------------------------------------------ flash
+
+
+@pytest.fixture(scope="module")
+def emulated_flash(tmp_path_factory):
+    """The flash-attention kernel source built for the CPU stand-in."""
+    fn = _build_emulated("flash_attention", tmp_path_factory.mktemp(
+        "emulated_flash")).flash_attention_launch
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+# (bh, s, d, causal): a tail S below a tile and one that is not a whole
+# number of 32-key tiles, two query tiles, head dims that leave lanes
+# without a chunk (20, 36) and the widest one
+FLASH_CASES = [(2, 100, 32, True), (2, 100, 32, False), (1, 64, 128, True),
+               (2, 45, 20, True), (1, 70, 36, False), (3, 33, 64, True)]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_emulated_flash_kernel_matches_plain(emulated_flash, case, dtype):
+    """Output and log-sum-exp against the plain version (f32 2e-5, bf16
+    2e-2; the log-sum-exp is fp32 from the same inputs in both dtypes, so
+    it is held at 2e-5 relative)."""
+    bh, s, d, causal = case
+    rng = np.random.default_rng(sum(case[:3]) + causal)
+    q, k, v = (torch.tensor(rng.standard_normal((bh, s, d)),
+                            dtype=torch.float32).to(dtype) for _ in range(3))
+    out = torch.full_like(q, float("nan"))
+    lse = torch.full((bh, s), float("nan"))
+    rc = emulated_flash(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), lse.data_ptr(), bh, s, d, d ** -0.5,
+                        int(causal), 1 if dtype == torch.bfloat16 else 0,
+                        None)
+    assert rc == 0
+    torch.testing.assert_close(
+        out.float(), flash_attention_plain(q, k, v, causal=causal).float(),
+        rtol=TOL[dtype], atol=TOL[dtype])
+    torch.testing.assert_close(lse, logsumexp_plain(q, k, causal=causal),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_emulated_flash_kernel_refuses_bad_head_dims(emulated_flash):
+    """Head dims the kernel does not take are refused before any launch
+    (cudaErrorInvalidValue), never computed wrongly."""
+    q = torch.zeros((1, 8, 136))
+    for d in (2, 6, 130, 136):
+        rc = emulated_flash(q.data_ptr(), q.data_ptr(), q.data_ptr(),
+                            q.data_ptr(), q.data_ptr(), 1, 8, d, 1.0, 1, 0,
+                            None)
+        assert rc != 0, d
