@@ -62,6 +62,33 @@ non-zero without printing a result:
                   yardstick the port never calls) at the training shape,
                   q, k, v [128, 2048, 128] bf16 causal, L2 flushed before
                   each launch, beside the flops bound.
+13. ssd_kernel  — the SSD scan kernel against its plain version, y and the
+                  final state: the ``tests/test_kernels.py`` sweep (S
+                  64-256, chunks 16-64, G 1 and 2), the full-width calls of
+                  mamba2 and zamba2 (H 80, P 64, N 128 and 64, chunk 256,
+                  S 2048), a G = 2 and an S = chunk case, f32 (2e-3) and
+                  bf16 (one bf16 step); ``SsdScan``'s gradients against
+                  autograd through the plain version.
+14. ssm_serve, hybrid_serve — mamba2-2.7b and zamba2-2.7b at full width
+                  and depth (seeded bf16 weights) through the contiguous
+                  ``ServeEngine``: 4 requests of 32-64 prompt tokens, 16
+                  new tokens each, one sampled.  Then the prefill check:
+                  ``Model.prefill`` of a 512-token prompt (one SSD launch a
+                  Mamba2 layer, one flash launch a shared block; counts
+                  zeroed just before) continued by ``decode_step``, against
+                  the prompt stepped one token at a time, in f32.
+15. ssm_train_parity — full width, seq 2048, batch 1, mamba2 cut to 2
+                  layers and zamba2 to one group (6 layers): the loss and
+                  every gradient through the kernels against the plain
+                  versions on the card.
+16. ssm_train   — mamba2-2.7b at full width and full depth (2.83 B
+                  parameters), seq 2048, batch 4, remat full, the first 4
+                  steps of the default schedule: the SSD kernel launched
+                  twice per layer per step (counts zeroed just before), one
+                  more step under ``torch.profiler``.
+17. ssd_timing  — SSD kernel and plain version at mamba2's training call
+                  (x [4, 2048, 80, 64] bf16, chunk 256) and prefill call
+                  (x [1, 512, 80, 64]), L2 flushed, beside the bytes bound.
 
 Then the ``kernels`` summary line, the card's name and power limit as
 ``nvidia-smi`` reports them, and last ``{"ok": true, "device": ...}``.
@@ -95,11 +122,13 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.launch.train import train as train_cli  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention_cuda, paged_attention_plain)
+from repro_torch.kernels.ssd_scan import (SsdScan, ssd_scan_backward,  # noqa: E402
+                                          ssd_scan_cuda, ssd_scan_plain)
 from repro_torch.models import build  # noqa: E402
 from repro_torch.models import params as P  # noqa: E402
 from repro_torch.models.decode import decode_paged_chunk  # noqa: E402
 from repro_torch.serve import (PagedServeEngine, Request,  # noqa: E402
-                               SamplingParams)
+                               SamplingParams, ServeEngine)
 from repro_torch.train.step import (init_train_state,  # noqa: E402
                                     make_train_step)
 
@@ -118,7 +147,8 @@ FULL_WIDTH = [("deepseek-7b", 32, 1, 128), ("phi3-medium-14b", 10, 4, 128),
               ("phi3-mini-3.8b", 32, 1, 96)]
 KERNEL_REPLACES = {
     "paged_attention": "src/repro/kernels/paged_attention.py:102",
-    "flash_attention": "src/repro/kernels/flash_attention.py:76"}
+    "flash_attention": "src/repro/kernels/flash_attention.py:76",
+    "ssd_scan": "src/repro/kernels/ssd_scan.py:69"}
 KERNEL_SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu"
                   for name in KERNEL_REPLACES}
 # training: full width, depth cut to fit AdamW's 16 bytes per parameter
@@ -429,24 +459,18 @@ def phase_profile(model, params, dev, warm=30, ticks=10) -> None:
         for _ in range(ticks):
             eng.step()
         torch.cuda.synchronize()
-    by_kernel = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", 0.0)
-        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-            by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + us
-    device_ms = sum(by_kernel.values()) / ticks / 1e3
-    check(device_ms > 0, "the profiler saw no device time")
+    by_kernel = device_ms_by_kernel(prof)
+    device_ms = sum(by_kernel.values()) / ticks
     paged = sum(v for k, v in by_kernel.items() if "paged_attention" in k)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     emit({"phase": "profile", "ticks": ticks, "after_ticks": warm,
           "wall_ms_per_tick": wall_ms, "device_ms_per_tick": device_ms,
           "device_busy_share": device_ms / wall_ms,
-          "paged_attention_ms_per_tick": paged / ticks / 1e3,
-          "paged_attention_share_of_device": paged / 1e3 / ticks / device_ms,
+          "paged_attention_ms_per_tick": paged / ticks,
+          "paged_attention_share_of_device": paged / ticks / device_ms,
           "weights_read_bound_ms_per_tick":
               2 * P.count(model.param_specs()) / HBM_BYTES_PER_S * 1e3,
-          "top_kernels_ms_per_tick": {k[:60]: v / ticks / 1e3
-                                      for k, v in top}})
+          "top_kernels_ms_per_tick": {k[:60]: v / ticks for k, v in top}})
 
 
 def bound_ms(q, page_table, pos, n_new, k_pool):
@@ -686,11 +710,24 @@ def phase_train_parity(dev) -> None:
           "flash_launches": launches})
 
 
+def device_ms_by_kernel(prof) -> dict[str, float]:
+    """Device milliseconds by kernel name from a ``torch.profiler`` run."""
+    by_kernel = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0.0)
+        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + us / 1e3
+    check(sum(by_kernel.values()) > 0, "the profiler saw no device time")
+    return by_kernel
+
+
 def kernel_kind(name: str) -> str:
     """A device kernel's kind, from its name, for the step's breakdown."""
     low = name.lower()
     if "flash_attention" in low:
         return "flash_attention"
+    if "ssd_scan" in low:
+        return "ssd_scan"
     if any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass")):
         return ("matmul_f32" if "f32f32" in low or "sgemm" in low
                 else "matmul_bf16")
@@ -703,45 +740,74 @@ def kernel_kind(name: str) -> str:
     return "other"
 
 
+def train_setup(cfg, seq, batch, steps, dev):
+    """What the training phases share: the model, its train step (remat
+    full, the default schedule: 1000 steps, warmup 100), the first
+    ``steps + 1`` host batches of the port's ``DataPipeline`` and a
+    function that makes the seeded initial state."""
+    model = build(cfg)
+    step_fn = make_train_step(model, RunConfig(
+        cfg, ShapeConfig("train", "train", seq, batch),
+        TrainConfig(remat="full")))
+    data = DataPipeline(DataConfig(cfg.vocab_size, seq, batch, seed=SEED))
+    batches = [next(data)[1] for _ in range(steps + 1)]
+    data.close()
+    return model, step_fn, batches, lambda: init_train_state(
+        model, torch.Generator(device=dev).manual_seed(SEED), dev)
+
+
+def run_steps(step_fn, state, host_batches, dev):
+    """Steps over ``host_batches``, each timed on the host clock from its
+    batch's copy to the card to the host's read of its loss."""
+    losses, step_s = [], []
+    for host_batch in host_batches:
+        t0 = time.perf_counter()
+        batch = {k: torch.tensor(a, device=dev)
+                 for k, a in host_batch.items()}
+        state, metrics = step_fn(state, batch)
+        losses.append(float(metrics["loss"]))   # the step's host sync
+        step_s.append(time.perf_counter() - t0)
+    return state, losses, step_s
+
+
+def profiled_step(step_fn, state, host_batch, dev):
+    """One more step under ``torch.profiler``: (state, device ms, device
+    ms by kernel kind, the top kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+    batch = {k: torch.tensor(a, device=dev) for k, a in host_batch.items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, _ = step_fn(state, batch)
+        torch.cuda.synchronize()
+    by_kernel = device_ms_by_kernel(prof)
+    by_kind = {}
+    for name, ms in by_kernel.items():
+        by_kind[kernel_kind(name)] = by_kind.get(kernel_kind(name), 0.0) + ms
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+    return (state, sum(by_kernel.values()), by_kind,
+            {k[:70]: v for k, v in top})
+
+
 def phase_train(dev) -> tuple[dict, float]:
     """Full-width deepseek-7b at 8 layers: 4 steps through the port's train
     step, launch counts zeroed just before and read just after; then one
     more step under ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
     cfg = dataclasses.replace(ALL_ARCHS[ARCH], n_layers=TRAIN_LAYERS)
-    model = build(cfg)
-    # the first steps of the default schedule (1000 steps, warmup 100);
-    # at this width and 8,192 tokens a batch they already oscillate, the
-    # optimizer's doing, as the plain-version run below shows (PERF.md)
-    run = RunConfig(cfg, ShapeConfig("train", "train", TRAIN_SEQ,
-                                     TRAIN_BATCH), TrainConfig(remat="full"))
+    # the first steps of the default schedule; at this width and 8,192
+    # tokens a batch they already oscillate, the optimizer's doing, as the
+    # plain-version run below shows (PERF.md)
+    _, step_fn, batches, fresh = train_setup(cfg, TRAIN_SEQ, TRAIN_BATCH,
+                                             TRAIN_STEPS, dev)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    state = init_train_state(
-        model, torch.Generator(device=dev).manual_seed(SEED), dev)
+    state = fresh()
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in P.leaves(state.params))
-    step_fn = make_train_step(model, run)
-    data = DataPipeline(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
-                                   seed=SEED))
-    batches = [next(data)[1] for _ in range(TRAIN_STEPS + 1)]
-    data.close()
-
-    def run_steps(state):
-        losses, step_s = [], []
-        for host_batch in batches[:TRAIN_STEPS]:
-            t0 = time.perf_counter()
-            batch = {k: torch.tensor(a, device=dev)
-                     for k, a in host_batch.items()}
-            state, metrics = step_fn(state, batch)
-            losses.append(float(metrics["loss"]))   # the step's host sync
-            step_s.append(time.perf_counter() - t0)
-        return state, losses, step_s
-
-    torch.cuda.synchronize()
     ops.reset_launches()
-    state, losses, step_s = run_steps(state)
+    state, losses, step_s = run_steps(step_fn, state, batches[:TRAIN_STEPS],
+                                      dev)
     launches = dict(ops.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
 
@@ -755,33 +821,16 @@ def phase_train(dev) -> tuple[dict, float]:
     check(launches["paged_attention"] == 0, "paged attention ran in training")
 
     steady_ms = statistics.median(step_s[1:]) * 1e3
-    batch = {k: torch.tensor(a, device=dev)
-             for k, a in batches[TRAIN_STEPS].items()}
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        state, metrics = step_fn(state, batch)
-        torch.cuda.synchronize()
-    by_kernel = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", 0.0)
-        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-            by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + us
-    device_ms = sum(by_kernel.values()) / 1e3
-    check(device_ms > 0, "the profiler saw no device time")
-    by_kind = {}
-    for name, us in by_kernel.items():
-        kind = kernel_kind(name)
-        by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3
+    state, device_ms, by_kind, top = profiled_step(
+        step_fn, state, batches[TRAIN_STEPS], dev)
     flash_ms = by_kind.get("flash_attention", 0.0)
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
     # the same steps from the same seed with the plain version on the
     # card: the kernel's training trajectory must track it
-    del state, metrics
+    del state
     torch.cuda.empty_cache()
     with plain_flash():
-        _, plain_losses, _ = run_steps(init_train_state(
-            model, torch.Generator(device=dev).manual_seed(SEED), dev))
+        _, plain_losses, _ = run_steps(step_fn, fresh(),
+                                       batches[:TRAIN_STEPS], dev)
     traj_err = max(abs(a - b) / abs(b) for a, b in zip(losses, plain_losses))
     check(traj_err <= TRAJ_TOL, f"losses through the kernel {losses} vs the "
                                 f"plain version {plain_losses}")
@@ -799,8 +848,7 @@ def phase_train(dev) -> tuple[dict, float]:
                       "device_busy_share": device_ms / steady_ms,
                       "flash_kernel_ms_per_step": flash_ms,
                       "flash_share_of_device": flash_ms / device_ms,
-                      "ms_by_kind": by_kind,
-                      "top_kernels_ms": {k[:70]: v / 1e3 for k, v in top}}})
+                      "ms_by_kind": by_kind, "top_kernels_ms": top}})
     return launches, steady_ms
 
 
@@ -869,6 +917,418 @@ def phase_flash_timing(dev) -> tuple[float, dict]:
     emit(timing)
     return err, timing
 
+# ------------------------------------------------------------- SSD kernel
+
+SSM_ARCH, HYBRID_ARCH = "mamba2-2.7b", "zamba2-2.7b"
+# (b, s, h, p, g, n, chunk): the tests/test_kernels.py:85-100 sweep, the
+# full-width calls of mamba2 (N 128) and zamba2 (N 64) at S 2048, a G = 2
+# case at full width, S = chunk, and P, N that are not powers of two
+SSD_SWEEP = [(2, s, 4, 32, g, 16, c) for s, c in ((64, 16), (128, 32),
+                                                   (256, 64)) for g in (1, 2)]
+SSD_FULL = [(1, 2048, 80, 64, 1, 128, 256), (1, 2048, 80, 64, 1, 64, 256),
+            (1, 1024, 80, 64, 2, 128, 256), (2, 256, 80, 64, 1, 128, 256),
+            (1, 384, 6, 40, 1, 24, 128)]
+SSD_GRAD_CASES = [(2, 128, 4, 32, 2, 16, 32), (1, 256, 8, 64, 1, 128, 128)]
+SSD_TOL = 2e-3          # the reference's SSD tolerance, f32
+SSM_SLOTS, SSM_REQUESTS, SSM_MAX_NEW, SSM_MAX_LEN = 4, 4, 16, 256
+PREFILL_LEN = 512       # two 256-token chunks
+PREFILL_TOL = 1e-3      # prefill vs one-token recurrence, f32, relative
+SSM_TRAIN_SEQ, SSM_TRAIN_BATCH, SSM_TRAIN_STEPS = 2048, 4, 4
+
+
+def ssd_case(b, s, h, p, g, n, dtype, seed, dev, grad=False):
+    """A scan problem with the reference sweep's distributions: x, B, C
+    normal; dt in [0.001, 0.1]; a in [-1, -0.1]."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    dt = torch.rand((b, s, h), generator=gen, device=dev) * 0.099 + 0.001
+    a = -(torch.rand((h,), generator=gen, device=dev) * 0.9 + 0.1)
+    args = (randn(b, s, h, p), dt, a, randn(b, s, g, n), randn(b, s, g, n))
+    return tuple(t.requires_grad_(grad) for t in args)
+
+
+def ssd_close(y, y_p, fin, fin_p, dtype) -> tuple[bool, float]:
+    """Kernel against plain: the final state (fp32) at 2e-3; y at 2e-3 in
+    f32, and in bf16 at one bf16 step of each value (2^-7 relative) plus
+    1e-3 for the fp32 sums' order, both sides rounding one fp32 result."""
+    err = float((y.float() - y_p.float()).abs().max())
+    ok = torch.allclose(fin, fin_p, rtol=SSD_TOL, atol=SSD_TOL) and (
+        torch.allclose(y, y_p, rtol=SSD_TOL, atol=SSD_TOL)
+        if dtype == torch.float32 else
+        torch.allclose(y.float(), y_p.float(), rtol=2 ** -7, atol=1e-3))
+    return ok and bool(torch.isfinite(y.float()).all()), err
+
+
+def phase_ssd_kernel(dev) -> dict:
+    n_cases, worst, grad_worst = 0, {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        err = 0.0
+        for b, s, h, p, g, n, chunk in SSD_SWEEP + SSD_FULL:
+            args = ssd_case(b, s, h, p, g, n, dtype, n_cases, dev)
+            y, fin = ssd_scan_cuda(*args, chunk)
+            y_p, fin_p = ssd_scan_plain(*args, chunk)
+            torch.cuda.synchronize()
+            ok, e = ssd_close(y, y_p, fin, fin_p, dtype)
+            err = max(err, e)
+            check(ok, f"ssd kernel != plain: {(b, s, h, p, g, n, chunk)} "
+                      f"{dtype}: max |dy| {e}")
+            n_cases += 1
+        g_err = 0.0
+        for b, s, h, p, g, n, chunk in SSD_GRAD_CASES:
+            gen = torch.Generator(device=dev).manual_seed(1000 + n_cases)
+            d_y = torch.randn((b, s, h, p), generator=gen, device=dev).to(dtype)
+            d_fin = torch.randn((b, h, p, n), generator=gen, device=dev)
+            grads = []
+            for fn in (lambda *t: SsdScan.apply(*t, chunk),
+                       lambda *t: ssd_scan_plain(*t, chunk)):
+                args = ssd_case(b, s, h, p, g, n, dtype, n_cases, dev, True)
+                torch.autograd.backward(fn(*args), (d_y, d_fin))
+                grads.append([t.grad for t in args])
+            tol = 1e-4 if dtype == torch.float32 else GRAD_TOL
+            for got, want in zip(*grads):
+                e = max_rel_to_max(got, want)
+                g_err = max(g_err, e)
+                check(e <= tol, f"SsdScan gradients != plain autograd: "
+                                f"{(b, s, h, p, g, n, chunk)} {dtype}: {e}")
+            n_cases += 1
+        name = str(dtype).replace("torch.", "")
+        worst[name], grad_worst[name] = err, g_err
+    emit({"phase": "ssd_kernel", "cases": n_cases, "max_abs_err": worst,
+          "grad_max_err_rel_to_max": grad_worst,
+          "tolerance": {"float32": SSD_TOL, "bfloat16": "2^-7 rel + 1e-3",
+                        "final_state": SSD_TOL,
+                        "grad": {"float32": 1e-4, "bfloat16": GRAD_TOL}},
+          "full_width": SSD_FULL})
+    return worst
+
+
+class _PlainSsd(torch.autograd.Function):
+    """The plain version's forward with the port's torch-op gradient.
+    Autograd through the plain version itself gives NaN at full width: its
+    dense exp(seg_q - seg_k) overflows above the diagonal once a chunk's
+    summed dt * a passes about 88 (256 tokens at dt near softplus(0)), and
+    the masked overflow carries 0 * inf back."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b_in, c_in, chunk):
+        ctx.save_for_backward(x, dt, a, b_in, c_in)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return ssd_scan_plain(x, dt, a, b_in, c_in, chunk)
+
+    @staticmethod
+    def backward(ctx, d_y, d_fin):
+        grads = ssd_scan_backward(*ctx.saved_tensors, ctx.chunk, d_y, d_fin)
+        return (*grads, None)
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The model's flash and SSD calls go to their plain versions, on the
+    card: the reference side of the parity phases (the port has no
+    switch)."""
+    saved = ops.ssd_scan
+
+    def plain_ssd(x, dt, a, b_in, c_in, chunk):
+        return _PlainSsd.apply(x, dt, a, b_in, c_in, min(chunk, x.shape[1]))
+
+    ops.ssd_scan = plain_ssd
+    try:
+        with plain_flash():
+            yield
+    finally:
+        ops.ssd_scan = saved
+
+
+def phase_ssm_train_parity(dev) -> None:
+    """Full width, seq 2048, batch 1: mamba2 cut to 2 layers and zamba2 to
+    one group (5 Mamba2 layers and the shared block): the loss and every
+    gradient through the kernels against the plain versions on the card."""
+    for arch, layers in ((SSM_ARCH, 2), (HYBRID_ARCH, 6)):
+        cfg = dataclasses.replace(ALL_ARCHS[arch], n_layers=layers)
+        model = build(cfg)
+        params = model.init_params(
+            torch.Generator(device=dev).manual_seed(SEED), dev)
+        batch = model.sample_batch(
+            ShapeConfig("parity", "train", SSM_TRAIN_SEQ, 1), SEED, dev)
+        ops.reset_launches()
+        loss_k, grads_k = loss_and_grads(model, params, batch)
+        launches = dict(ops.LAUNCHES)
+        with plain_kernels():
+            loss_p, grads_p = loss_and_grads(model, params, batch)
+        torch.cuda.synchronize()
+        n_ssd = layers if cfg.family == "ssm" else layers - 1
+        n_flash = 0 if cfg.family == "ssm" else 1
+        check(launches["ssd_scan"] == n_ssd
+              and launches["flash_attention"] == n_flash,
+              f"{arch}: launches {launches}, expected ssd_scan {n_ssd}, "
+              f"flash_attention {n_flash}")
+        loss_err = rel_norm(loss_k, loss_p)
+        errs = [rel_norm(a, b) for a, b in zip(grads_k, grads_p)]
+        check(bool(torch.isfinite(loss_k)) and loss_err <= TRAJ_TOL,
+              f"{arch}: loss through the kernels {float(loss_k)} vs plain "
+              f"{float(loss_p)}")
+        check(all(np.isfinite(errs)) and max(errs) <= GRAD_TOL,
+              f"{arch}: gradients through the kernels vs plain: max rel "
+              f"{max(errs)}")
+        emit({"phase": "ssm_train_parity", "arch": cfg.name,
+              "layers": cfg.n_layers, "d_model": cfg.d_model,
+              "seq": SSM_TRAIN_SEQ, "batch": 1,
+              "loss_kernel": float(loss_k), "loss_plain": float(loss_p),
+              "loss_rel_err": loss_err, "loss_tolerance": TRAJ_TOL,
+              "grad_leaves": len(errs), "grad_max_rel_norm_err": max(errs),
+              "grad_tolerance": GRAD_TOL, "launches": launches})
+        del params, grads_k, grads_p
+        torch.cuda.empty_cache()
+
+
+def near_tie_ok(got, want) -> tuple[bool, float]:
+    """Logits [1, V] of two paths: within PREFILL_TOL of the largest
+    |logit|, and the same argmax unless ``want``'s top two are within twice
+    that (the near-tie rule of tests/test_torch_decode.py).  Returns
+    (ok, max |dlogit|)."""
+    err = float((got - want).abs().max())
+    tol = PREFILL_TOL * float(want.abs().max())
+    top2 = torch.topk(want, 2, dim=-1).values[0]
+    same = bool((got.argmax(-1) == want.argmax(-1)).all())
+    return err <= tol and (same or float(top2[0] - top2[1]) <= 2 * tol), err
+
+
+def prefill_check(model, params, dev) -> dict:
+    """``Model.prefill`` of a 512-token prompt (two 256-token chunks: one
+    SSD launch a Mamba2 layer, one flash launch a shared block) continued by
+    ``decode_step``, against the same prompt stepped one token at a time
+    through ``decode_step``: first-token logits, the next step's logits,
+    and every layer's final SSM state.  In f32 (the seeded bf16 weights
+    upcast), so the two paths differ only by the order of fp32 sums; in
+    bf16 they also round at different points, and the states part by a
+    few percent a few layers down (0.8% after one layer, 3.8% after four,
+    at reduced size on the CPU)."""
+    cfg = model.cfg
+    params = P.tree_map(lambda t: t.float(), params)
+    prompt = np.random.default_rng(SEED + 1).integers(
+        0, cfg.vocab_size, size=PREFILL_LEN)
+    cache_len = PREFILL_LEN + 8
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    logits_p, cache_p = model.prefill(
+        params, {"tokens": torch.tensor(prompt[None], device=dev)}, cache_len)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    cache_s = P.tree_map(lambda t: t.float(),
+                         model.zero_cache(1, cache_len, dev))
+    t0 = time.perf_counter()
+    for i, tok in enumerate(prompt.tolist()):
+        logits_s = model.decode_step(
+            params, cache_s, torch.tensor([[tok]], device=dev),
+            torch.tensor([i], dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    stepped_s = time.perf_counter() - t0
+    ok_first, first_err = near_tie_ok(logits_p, logits_s)
+    state_err = max(rel_norm(a, b) for a, b in zip(cache_p["ssm"]["ssm"],
+                                                   cache_s["ssm"]["ssm"]))
+    first = [int(logits_p.argmax()), int(logits_s.argmax())]
+    nxt = torch.tensor([[first[1]]], device=dev)
+    pos = torch.tensor([PREFILL_LEN], dtype=torch.int32, device=dev)
+    ok_next, next_err = near_tie_ok(model.decode_step(params, cache_p, nxt, pos),
+                                    model.decode_step(params, cache_s, nxt, pos))
+    n_ssm = cache_p["ssm"]["ssm"].shape[0]
+    n_attn = cache_p["self"]["k"].shape[0] if "self" in cache_p else 0
+    check(launches["ssd_scan"] == n_ssm
+          and launches["flash_attention"] == n_attn,
+          f"prefill launches {launches}: expected ssd_scan {n_ssm}, "
+          f"flash_attention {n_attn}")
+    check(ok_first and ok_next and state_err <= PREFILL_TOL,
+          f"prefill vs one-token recurrence: first tokens {first}, max "
+          f"|dlogit| {first_err} then {next_err}, state rel err {state_err}")
+    return {"prompt": PREFILL_LEN, "dtype": "float32", "launches": launches,
+            "first_tokens_prefill_stepped": first,
+            "first_logits_max_abs_err": first_err,
+            "next_logits_max_abs_err": next_err,
+            "logit_scale": float(logits_s.abs().max()),
+            "max_layer_ssm_state_rel_err": state_err,
+            "tolerance": PREFILL_TOL,
+            "prefill_s": prefill_s, "stepped_s": stepped_s}
+
+
+def ssm_requests(cfg) -> list:
+    """Four prompts of 32-64 tokens, 16 new tokens each, one sampled.  The
+    contiguous engine feeds every prompt token through a step of its own
+    (about 90 ms at full depth, host-bound), so the prompts are short."""
+    rng = np.random.default_rng(SEED)
+    sampled = SamplingParams(temperature=0.8, top_k=50, top_p=0.95, seed=1)
+    return [Request(rid=i, max_new=SSM_MAX_NEW,
+                    prompt=rng.integers(0, cfg.vocab_size, size=int(
+                        rng.integers(32, 65))).tolist(),
+                    sampling=sampled if i == 1 else None)
+            for i in range(SSM_REQUESTS)]
+
+
+def phase_stateful_serve(arch, dev) -> dict:
+    """Full width and depth, seeded bf16 weights, through the contiguous
+    ``ServeEngine`` (the ssm and hybrid caches have no paged form), then
+    the prefill check on the same weights."""
+    cfg = ALL_ARCHS[arch]
+    model = build(cfg)
+    phase_t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(SEED),
+                               dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - phase_t0
+    warm = ServeEngine(model, params, slots=1, max_len=32, device=dev)
+    warm.run([Request(rid=0, prompt=list(range(8)), max_new=2)])
+    del warm
+    eng = ServeEngine(model, params, slots=SSM_SLOTS, max_len=SSM_MAX_LEN,
+                      device=dev)
+    reqs = ssm_requests(cfg)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    done = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    rep = eng.report()
+    check(rep["served"] == SSM_REQUESTS, f"{arch}: served {rep['served']}")
+    for r in done:
+        check(len(r.out) == SSM_MAX_NEW and all(
+            0 <= t < cfg.padded_vocab for t in r.out),
+            f"{arch}: request {r.rid} gave {r.out}")
+    prompt_tokens = sum(len(r.prompt) for r in reqs)
+    # the contiguous engine feeds each prompt token through its own step
+    steps = prompt_tokens + rep["decode_steps"]
+    check(not any(launches.values()),
+          f"{arch}: the contiguous engine launched {launches}")
+    out = {"phase": ("ssm_serve" if cfg.family == "ssm"
+                     else "hybrid_serve"), "arch": cfg.name,
+           "params": sum(t.numel() for t in P.leaves(params)),
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "init_s": round(init_s, 2), "engine": rep["engine"],
+           "slots": SSM_SLOTS, "requests": SSM_REQUESTS,
+           "prompt_tokens": prompt_tokens, "wall_s": wall,
+           "decode_steps": rep["decode_steps"], "engine_steps": steps,
+           "ms_per_step": 1e3 * wall / steps,
+           "tokens_out_per_s": rep["tokens_out"] / wall,
+           "tokens_processed_per_s": (rep["tokens_out"] + prompt_tokens) / wall,
+           "launches": launches,
+           "first_tokens": {r.rid: r.out[:4] for r in done}}
+    del eng
+    out["prefill"] = prefill_check(model, params, dev)
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["phase_s"] = time.perf_counter() - phase_t0
+    emit(out)
+    return out
+
+
+def phase_ssm_train(dev) -> dict:
+    """Full-width mamba2-2.7b at full depth (64 layers, 2.83 B parameters;
+    AdamW state 45 GB): seq 2048, batch 4, remat full, the first 4 steps
+    of the default schedule on the port's ``DataPipeline``; launch counts
+    zeroed just before and read just after; one more step under
+    ``torch.profiler``."""
+    cfg = ALL_ARCHS[SSM_ARCH]
+    _, step_fn, batches, fresh = train_setup(
+        cfg, SSM_TRAIN_SEQ, SSM_TRAIN_BATCH, SSM_TRAIN_STEPS, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = fresh()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ops.reset_launches()
+    state, losses, step_s = run_steps(step_fn, state,
+                                      batches[:SSM_TRAIN_STEPS], dev)
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    check(all(np.isfinite(losses)), f"non-finite ssm training loss {losses}")
+    expected = 2 * cfg.n_layers * SSM_TRAIN_STEPS
+    check(launches["ssd_scan"] == expected,
+          f"ssd_scan launched {launches['ssd_scan']} times, expected 2 x "
+          f"layers x steps = {expected} (forward and remat recompute)")
+    check(launches["flash_attention"] == 0 and launches["paged_attention"] == 0,
+          f"attention kernels ran in mamba2 training: {launches}")
+    steady_ms = statistics.median(step_s[1:]) * 1e3
+    state, device_ms, by_kind, top = profiled_step(
+        step_fn, state, batches[SSM_TRAIN_STEPS], dev)
+    ssd_ms = by_kind.get("ssd_scan", 0.0)
+    tokens = SSM_TRAIN_SEQ * SSM_TRAIN_BATCH
+    emit({"phase": "ssm_train", "arch": cfg.name, "layers": cfg.n_layers,
+          "d_model": cfg.d_model,
+          "params": sum(t.numel() for t in P.leaves(state.params)),
+          "seq": SSM_TRAIN_SEQ, "batch": SSM_TRAIN_BATCH, "remat": "full",
+          "init_s": round(init_s, 2), "losses": losses,
+          "loss_fell": losses[-1] < losses[0],
+          "step_ms": [1e3 * t for t in step_s],
+          "steady_ms_per_step": steady_ms,
+          "tokens_per_s": tokens / steady_ms * 1e3,
+          "peak_mem_gb": peak_gb, "launches": launches,
+          "profile": {"device_ms_per_step": device_ms,
+                      "device_busy_share": device_ms / steady_ms,
+                      "ssd_kernel_ms_per_step": ssd_ms,
+                      "ssd_share_of_device": ssd_ms / device_ms,
+                      "ms_by_kind": by_kind, "top_kernels_ms": top}})
+    del state
+    return launches
+
+
+def ssd_bound(b, s, h, p, g, n, chunk, dtype) -> tuple[float, str, int, int]:
+    """The least time for one scan, from its shapes: each input read once
+    and each output written once over HBM rate, or its useful flops (C·Bᵀ
+    once per group on the causal half, the masked product with x, the
+    inter-chunk term and the state update) over the peak of the inputs'
+    type, whichever is larger."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    bytes_ = (2 * b * s * h * p * item + b * s * h * 4 + h * 4
+              + 2 * b * s * g * n * item + b * h * p * n * 4)
+    nc, tri = s // chunk, chunk * (chunk + 1) // 2
+    flops = (2 * b * nc * g * tri * n + 2 * b * nc * h * tri * p
+             + 4 * b * s * h * p * n)
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_OPS_PER_S[dtype] * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            bytes_, flops)
+
+
+def phase_ssd_timing(dev) -> tuple[float, dict]:
+    """The kernel and its plain version at mamba2's training call
+    (x [4, 2048, 80, 64] bf16, chunk 256, N 128) and its prefill call
+    (x [1, 512, 80, 64]), L2 flushed before each launch, median of 25;
+    no single PyTorch call computes the scan, so no library time."""
+    cfg = ALL_ARCHS[SSM_ARCH]
+    rows = {}
+    for name, b, s in (("train", SSM_TRAIN_BATCH, SSM_TRAIN_SEQ),
+                       ("prefill", 1, PREFILL_LEN)):
+        shape = (b, s, cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups,
+                 cfg.ssm_state, cfg.ssd_chunk)
+        args = ssd_case(*shape[:6], torch.bfloat16, SEED, dev)
+        y, fin = ssd_scan_cuda(*args, cfg.ssd_chunk)
+        y_p, fin_p = ssd_scan_plain(*args, cfg.ssd_chunk)
+        torch.cuda.synchronize()
+        ok, err = ssd_close(y, y_p, fin, fin_p, torch.bfloat16)
+        check(ok, f"ssd kernel != plain at the {name} call: {err}")
+        del y, fin, y_p, fin_p
+        bound, bound_by, bytes_, flops = ssd_bound(*shape, torch.bfloat16)
+        t_kernel = time_cold(lambda: ssd_scan_cuda(*args, cfg.ssd_chunk),
+                             dev, n=25)
+        t_plain = time_cold(lambda: ssd_scan_plain(*args, cfg.ssd_chunk),
+                            dev, n=25)
+        rows[name] = {"x_shape": list(shape[:4]), "chunk": cfg.ssd_chunk,
+                      "state": cfg.ssm_state, "dtype": "bfloat16",
+                      "ms": t_kernel, "plain_ms": t_plain,
+                      "library_ms": None, "max_abs_err": err,
+                      "bound_ms": bound, "bound_by": bound_by,
+                      "bytes": bytes_, "useful_flops": flops,
+                      "achieved_tflops": flops / t_kernel / 1e9,
+                      "bound_share": bound / t_kernel}
+    timing = {"phase": "ssd_timing", **rows, "gpu": nvidia_smi()}
+    emit(timing)
+    return rows["train"]["max_abs_err"], rows["train"]
+
 
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -903,9 +1363,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_cli()
     flash_err, flash = phase_flash_timing(dev)
+    torch.cuda.empty_cache()
+    phase_ssd_kernel(dev)
+    for arch in (SSM_ARCH, HYBRID_ARCH):
+        phase_stateful_serve(arch, dev)
+        torch.cuda.empty_cache()
+    phase_ssm_train_parity(dev)
+    ssm_launches = phase_ssm_train(dev)
+    torch.cuda.empty_cache()
+    ssd_err, ssd = phase_ssd_timing(dev)
     rows = {"paged_attention": (launches["paged_attention"], err, timing),
             "flash_attention": (train_launches["flash_attention"], flash_err,
-                                flash)}
+                                flash),
+            "ssd_scan": (ssm_launches["ssd_scan"], ssd_err, ssd)}
     emit({"kernels": [{
         "name": name, "route": "cuda", "source": KERNEL_SOURCES[name],
         "replaces": KERNEL_REPLACES[name], "launches": n,

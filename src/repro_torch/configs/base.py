@@ -33,8 +33,9 @@ class ModelConfig:
       vlm     — decoder-only with cross-attention blocks every
                 ``cross_every`` layers attending to stubbed patch embeddings
 
-    The port serves the dense family; the other families' fields are kept
-    so every assigned arch is described identically in both packages.
+    The port builds the dense, ssm and hybrid families; the other families'
+    fields are kept so every assigned arch is described identically in both
+    packages.
     """
 
     name: str

@@ -16,8 +16,10 @@ from repro_torch.kernels.flash_attention import (FlashAttention,
                                                  flash_attention_plain)
 from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                  paged_attention_plain)
+from repro_torch.kernels.ssd_scan import SsdScan, ssd_scan_plain
 
-LAUNCHES: dict[str, int] = {"paged_attention": 0, "flash_attention": 0}
+LAUNCHES: dict[str, int] = {"paged_attention": 0, "flash_attention": 0,
+                            "ssd_scan": 0}
 
 
 def reset_launches() -> None:
@@ -52,3 +54,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         LAUNCHES["flash_attention"] += 1
         return out
     raise ValueError(f"flash_attention has no kernel for device {q.device}")
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             b_in: torch.Tensor, c_in: torch.Tensor, chunk: int
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2's chunked SSD scan -> ``(y, final_state)``; see
+    ``kernels.ssd_scan`` for the shapes.  The chunk is cut to the sequence
+    (``min(chunk, S)``) and must divide it, as the reference asserts.  On a
+    card the kernel runs inside ``SsdScan``, whose backward is written in
+    torch ops."""
+    s = x.shape[1]
+    chunk = min(chunk, s)
+    if chunk < 1 or s % chunk:
+        raise ValueError(f"ssd_scan: sequence {s} is not a multiple of the "
+                         f"chunk {chunk}")
+    if x.device.type == "cpu":
+        return ssd_scan_plain(x, dt, a, b_in, c_in, chunk)
+    if x.device.type == "cuda":
+        out = SsdScan.apply(x, dt, a, b_in, c_in, chunk)
+        LAUNCHES["ssd_scan"] += 1
+        return out
+    raise ValueError(f"ssd_scan has no kernel for device {x.device}")

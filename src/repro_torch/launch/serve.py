@@ -7,7 +7,9 @@ Mirrors ``repro.launch.serve`` for the flags this slice covers.  Like the
 reference it serves ``reduced(arch)`` with seeded random weights (here
 from a ``torch.Generator``).  Runs on the GPU unless ``--device cpu`` is
 given, and fails when asked for a GPU that is not there.  ``--engine
-contiguous`` serves through the oracle engine.  The metrics server,
+contiguous`` serves through the oracle engine; the ssm and hybrid archs
+(``mamba2-2.7b``, ``zamba2-2.7b``) always do, as in the reference, and the
+report's ``engine`` says which ran.  The metrics server,
 cluster routing and trace export are not ported yet.
 """
 from __future__ import annotations
@@ -39,6 +41,8 @@ def serve(arch: str, *, n_requests: int = 8, slots: int = 4,
         torch.Generator(device=dev).manual_seed(seed), dev)
     sampling = SamplingParams(temperature=temperature, top_k=top_k,
                               top_p=top_p, seed=sampling_seed)
+    if engine == "paged" and cfg.family not in ("dense", "moe"):
+        engine = "contiguous"   # no chunked path for stateful caches
     tracer = Tracer()
     if engine == "paged":
         eng = PagedServeEngine(model, params, slots=slots, max_len=max_len,

@@ -9,6 +9,9 @@ absent:
     PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-7b \\
         --steps 4 [--device cpu] [--resume --out DIR]
 
+Any arch of the dense, ssm and hybrid families trains (``mamba2-2.7b``,
+``zamba2-2.7b``); on a card their scans run the SSD kernel.
+
 Not ported: the device mesh and its wire-up, the environment manifest, the
 HLO attestation of the compiled step and ``RunAudit.finish``.  They belong
 to the multi-GPU and transport slice; their result keys (``diagnostics``,

@@ -8,8 +8,8 @@ Ports ``repro.models.attention`` at tp=1:
   reference's flash condition go to ``kernels.ops.flash_attention`` (the
   CUDA kernel on a card, its plain version on the CPU); the rest take the
   reference's q-chunked ``_attend``.  Cross-attention, non-causal
-  (encoder) attention, ``pos0 > 0`` and ``return_kv`` wait for the
-  vlm/encdec slice.
+  (encoder) attention and ``pos0 > 0`` wait for the vlm/encdec slice;
+  ``return_kv`` hands a prefill its cache rows.
 
 * ``paged_chunk_decode_attention`` — C query tokens per lane, KV written
   and attended through each lane's page table (the paged engine's step);
@@ -69,9 +69,10 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def full_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
-                   chunk: int = 1024) -> torch.Tensor:
+                   chunk: int = 1024, return_kv: bool = False):
     """Causal self-attention over whole sequences from position 0:
-    x [B,S,D] -> y [B,S,D].
+    x [B,S,D] -> y [B,S,D]; with ``return_kv`` also the post-RoPE
+    ``(k, v)`` [B,S,KV,hd] before the kv repeat, for a prefill's cache.
 
     kv is repeated to the q-head count and every head runs as one row of a
     ``[B·H, S, hd]`` problem.  Where the reference would take its flash
@@ -94,19 +95,19 @@ def full_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
         out = kops.flash_attention(heads_first(q), heads_first(k_r),
                                    heads_first(v_r), causal=True)
         out = out.reshape(b, h, s, hd).transpose(1, 2)
-        return out.reshape(b, s, h * hd) @ p["wo"]
-
-    def block(q_blk: torch.Tensor, q_pos: torch.Tensor) -> torch.Tensor:
-        mask = (pos[None, :] <= q_pos[:, None])[None, None]
-        return _attend(q_blk, k_r, v_r, mask, hd)
-
-    if s > chunk and s % chunk == 0:
-        out = torch.cat([checkpoint(block, q[:, i:i + chunk],
-                                    pos[i:i + chunk], use_reentrant=False)
-                         for i in range(0, s, chunk)], dim=1)
     else:
-        out = block(q, pos)
-    return out.reshape(b, s, h * hd) @ p["wo"]
+        def block(q_blk: torch.Tensor, q_pos: torch.Tensor) -> torch.Tensor:
+            mask = (pos[None, :] <= q_pos[:, None])[None, None]
+            return _attend(q_blk, k_r, v_r, mask, hd)
+
+        if s > chunk and s % chunk == 0:
+            out = torch.cat([checkpoint(block, q[:, i:i + chunk],
+                                        pos[i:i + chunk], use_reentrant=False)
+                             for i in range(0, s, chunk)], dim=1)
+        else:
+            out = block(q, pos)
+    y = out.reshape(b, s, h * hd) @ p["wo"]
+    return (y, (k, v)) if return_kv else y
 
 
 def paged_write_index(page_table: torch.Tensor, pos: torch.Tensor,

@@ -1,7 +1,11 @@
-"""Decode steps of the dense family: the paged chunk step, the contiguous
-single-token step, their cache declarations, and fused token selection.
+"""Prefill and decode: the full-sequence prefill, the contiguous
+single-token step, the paged chunk step, their cache declarations, and
+fused token selection.
 
-Ports the dense branches of ``repro.models.decode``.  Layers run as a
+Ports the dense, ssm and hybrid branches of ``repro.models.decode``.
+``prefill`` and ``decode_step`` serve all three families (the hybrid's
+attention cache holds one layer per group, for the shared block); the
+paged chunk step and its page pool are dense only.  Layers run as a
 Python loop over the stacked ``[L, ...]`` weights (the reference's
 ``lax.scan``); caches and pools are updated in place, so the steps return
 only logits.
@@ -24,17 +28,18 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import params as P
-from repro_torch.models.attention import (decode_attention,
+from repro_torch.models.attention import (decode_attention, full_attention,
                                           paged_chunk_decode_attention,
                                           paged_write_index)
 from repro_torch.models.layers import (embed_tokens, head_geom, logits_from,
                                        rmsnorm, swiglu)
+from repro_torch.models.ssm import conv_channels, mamba_block, mamba_decode
 
 
 def _dense_only(cfg: ModelConfig, what: str) -> None:
     if cfg.family != "dense":
-        raise ValueError(f"{what}: the port serves the dense family only, "
-                         f"got {cfg.family!r}")
+        raise ValueError(f"{what}: the paged path serves the dense family "
+                         f"only, got {cfg.family!r}")
 
 
 def _layer(layers: dict, i: int) -> dict:
@@ -44,15 +49,48 @@ def _layer(layers: dict, i: int) -> dict:
 # ================================================================= caches
 
 
-def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> dict[str, Any]:
-    """Dense per-slot KV cache ``(layers, batch, seq, kv, hd)`` for the
-    contiguous engine."""
-    _dense_only(cfg, "cache_specs")
+def _kv_cache_spec(cfg: ModelConfig, layers: int, b: int, s: int) -> dict:
     geom = head_geom(cfg)
-    shape = (cfg.n_layers, batch, seq_len, geom.n_kv, geom.head_dim)
+    shape = (layers, b, s, geom.n_kv, geom.head_dim)
     axes = ("layers", "cache_batch", "cache_seq", "cache_kv", None)
-    return {"self": {"k": P.ParamSpec(shape, axes, init="zeros"),
-                     "v": P.ParamSpec(shape, axes, init="zeros")}}
+    return {"k": P.ParamSpec(shape, axes, init="zeros"),
+            "v": P.ParamSpec(shape, axes, init="zeros")}
+
+
+def _ssm_cache_spec(cfg: ModelConfig, layers: int, b: int) -> dict:
+    return {
+        "conv": P.ParamSpec((layers, b, cfg.conv_width - 1,
+                             conv_channels(cfg)),
+                            ("layers", "cache_batch", None, "act_inner"),
+                            init="zeros"),
+        "ssm": P.ParamSpec(
+            (layers, b, cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
+            ("layers", "cache_batch", "cache_kv", None, None),
+            torch.float32, init="zeros"),
+    }
+
+
+def _groups(cfg: ModelConfig) -> tuple[int, int]:
+    """A hybrid's (groups, Mamba2 layers per group)."""
+    return cfg.n_layers // cfg.attn_every, cfg.attn_every - 1
+
+
+def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> dict[str, Any]:
+    """Per-slot caches of the contiguous engine: KV ``(layers, batch, seq,
+    kv, hd)`` for dense; conv tail ``(layers, batch, W-1, CC)`` and fp32
+    SSM state ``(layers, batch, H, P, N)`` for ssm; both for hybrid, whose
+    KV cache has one layer per group."""
+    fam = cfg.family
+    if fam == "dense":
+        return {"self": _kv_cache_spec(cfg, cfg.n_layers, batch, seq_len)}
+    if fam == "ssm":
+        return {"ssm": _ssm_cache_spec(cfg, cfg.n_layers, batch)}
+    if fam == "hybrid":
+        groups, per = _groups(cfg)
+        return {"ssm": _ssm_cache_spec(cfg, groups * per, batch),
+                "self": _kv_cache_spec(cfg, groups, batch, seq_len)}
+    raise ValueError(f"cache_specs: the port serves the dense, ssm and "
+                     f"hybrid families, got {fam!r}")
 
 
 def paged_cache_specs(cfg: ModelConfig, num_blocks: int,
@@ -71,19 +109,110 @@ def paged_cache_specs(cfg: ModelConfig, num_blocks: int,
 
 
 @torch.no_grad()
+def prefill(cfg: ModelConfig, params: dict, batch: dict,
+            cache_len: int | None = None) -> tuple[torch.Tensor, dict]:
+    """Full-sequence prefill: (last-position logits [B, Vpad] fp32, cache).
+    The cache is the one ``cache_specs`` declares, KV rows for the prompt's
+    positions (zero-padded to ``cache_len`` when it is longer: decode
+    headroom) and the SSM layers' conv tails and final states."""
+    fam = cfg.family
+    x = embed_tokens(params["embed"], batch["tokens"])
+    s = x.shape[1]
+    eps = cfg.norm_eps
+
+    def ssm_layer(x: torch.Tensor, i: int, convs: list, ssms: list):
+        p = _layer(params["layers"], i)
+        y, (conv, st) = mamba_block(cfg, p["mamba"], rmsnorm(p["ln"], x, eps),
+                                    return_state=True)
+        convs.append(conv)
+        ssms.append(st)
+        return x + y
+
+    ks, vs, convs, ssms = [], [], [], []
+    if fam == "dense":
+        for i in range(cfg.n_layers):
+            p = _layer(params["layers"], i)
+            a, (k, v) = full_attention(cfg, p["attn"],
+                                       rmsnorm(p["ln1"], x, eps),
+                                       return_kv=True)
+            x = x + a
+            x = x + swiglu(p["mlp"], rmsnorm(p["ln2"], x, eps))
+            ks.append(k)
+            vs.append(v)
+    elif fam == "ssm":
+        for i in range(cfg.n_layers):
+            x = ssm_layer(x, i, convs, ssms)
+    elif fam == "hybrid":
+        groups, per = _groups(cfg)
+        shared = params["shared"]
+        for g in range(groups):
+            for j in range(per):
+                x = ssm_layer(x, g * per + j, convs, ssms)
+            h = rmsnorm(params["site_norm"][g],
+                        rmsnorm(shared["ln_attn"], x, eps), eps)
+            a, (k, v) = full_attention(cfg, shared["attn"], h, return_kv=True)
+            x = x + a
+            x = x + swiglu(shared["mlp"], rmsnorm(shared["ln_mlp"], x, eps))
+            ks.append(k)
+            vs.append(v)
+    else:
+        raise ValueError(f"prefill: the port serves the dense, ssm and "
+                         f"hybrid families, got {fam!r}")
+
+    cache: dict[str, Any] = {}
+    if convs:
+        cache["ssm"] = {"conv": torch.stack(convs), "ssm": torch.stack(ssms)}
+    if ks:
+        pad = (cache_len or s) - s
+        cache["self"] = {
+            name: torch.nn.functional.pad(torch.stack(t),
+                                          (0, 0, 0, 0, 0, max(pad, 0)))
+            for name, t in (("k", ks), ("v", vs))}
+    x = rmsnorm(params["final_norm"], x[:, -1:, :], eps)
+    return logits_from(params["embed"], cfg, x)[:, 0], cache
+
+
+@torch.no_grad()
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
                 token: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """One-token decode.  token [B,1] int, pos [B] int.  Writes the cache
     in place; returns logits [B, Vpad] fp32."""
-    _dense_only(cfg, "decode_step")
+    fam = cfg.family
     x = embed_tokens(params["embed"], token)
-    kc, vc = cache["self"]["k"], cache["self"]["v"]
-    for i in range(cfg.n_layers):
+    eps = cfg.norm_eps
+
+    def ssm_layer(x: torch.Tensor, i: int) -> torch.Tensor:
         p = _layer(params["layers"], i)
-        h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-        x = x + decode_attention(cfg, p["attn"], h, kc[i], vc[i], pos)
-        x = x + swiglu(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps))
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        return x + mamba_decode(cfg, p["mamba"], rmsnorm(p["ln"], x, eps),
+                                cache["ssm"]["conv"][i],
+                                cache["ssm"]["ssm"][i])
+
+    if fam == "dense":
+        kc, vc = cache["self"]["k"], cache["self"]["v"]
+        for i in range(cfg.n_layers):
+            p = _layer(params["layers"], i)
+            h = rmsnorm(p["ln1"], x, eps)
+            x = x + decode_attention(cfg, p["attn"], h, kc[i], vc[i], pos)
+            x = x + swiglu(p["mlp"], rmsnorm(p["ln2"], x, eps))
+    elif fam == "ssm":
+        for i in range(cfg.n_layers):
+            x = ssm_layer(x, i)
+    elif fam == "hybrid":
+        groups, per = _groups(cfg)
+        shared = params["shared"]
+        kc, vc = cache["self"]["k"], cache["self"]["v"]
+        for g in range(groups):
+            for j in range(per):
+                x = ssm_layer(x, g * per + j)
+            h = rmsnorm(params["site_norm"][g],
+                        rmsnorm(shared["ln_attn"], x, eps), eps)
+            x = x + decode_attention(cfg, shared["attn"], h, kc[g], vc[g],
+                                     pos)
+            x = x + swiglu(shared["mlp"], rmsnorm(shared["ln_mlp"], x, eps))
+    else:
+        raise ValueError(f"decode_step: the port serves the dense, ssm and "
+                         f"hybrid families, got {fam!r}")
+    x = rmsnorm(params["final_norm"], x, eps)
     return logits_from(params["embed"], cfg, x)[:, 0]
 
 

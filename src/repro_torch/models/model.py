@@ -1,13 +1,13 @@
 """Public model API: one object per architecture config.
 
-Ports ``repro.models.Model`` for the dense family: the training loss, the
-train half of the batch declaration, and the methods the two serving
-engines call.  Full-sequence ``prefill`` belongs to a later slice of the
-port.  The reference's ``use_pallas`` switch has no counterpart: the
-tensors' device picks the kernel or its plain version.  A ``Model`` holds
-no tensors; weights and caches are passed in, and caches are updated in
-place, so the decode methods return only what the reference returns
-beside its new cache.
+Ports ``repro.models.Model`` for the dense, ssm and hybrid families: the
+training loss, the train half of the batch declaration, the full-sequence
+``prefill`` and the methods the two serving engines call (the paged ones
+for dense only, as in the reference).  The reference's ``use_pallas``
+switch has no counterpart: the tensors' device picks the kernel or its
+plain version.  A ``Model`` holds no tensors; weights and caches are
+passed in, and caches are updated in place, so the decode methods return
+only what the reference returns beside its new cache.
 """
 from __future__ import annotations
 
@@ -44,26 +44,36 @@ class Model:
 
     # ---- batch declaration (train) ----
     def input_specs(self, shape: ShapeConfig) -> dict[str, tuple]:
-        """``{name: (shape, dtype)}`` of a training batch (dense)."""
+        """``{name: (shape, dtype)}`` of a training batch: tokens and
+        labels for the dense, ssm and hybrid families."""
         if shape.kind != "train":
             raise ValueError(f"the port declares training batches only, got "
                              f"{shape.kind!r}")
+        if self.cfg.family not in ("dense", "ssm", "hybrid"):
+            raise ValueError(f"the port declares the dense, ssm and hybrid "
+                             f"batches, got {self.cfg.family!r}")
         tok = ((shape.global_batch, shape.seq_len), torch.int32)
         return {"tokens": tok, "labels": tok}
 
     def sample_batch(self, shape: ShapeConfig, seed: int,
-                     device: str | torch.device = "cpu"
-                     ) -> dict[str, torch.Tensor]:
-        """A random batch matching ``input_specs``: token ids uniform over
-        the real vocab, drawn in declaration order from numpy's
-        ``default_rng(seed)`` (the reference draws from ``jax.random``)."""
+                     device: str | torch.device) -> dict[str, torch.Tensor]:
+        """A random batch matching ``input_specs`` on ``device``: token ids
+        uniform over the real vocab, drawn in declaration order from
+        numpy's ``default_rng(seed)`` (the reference draws from
+        ``jax.random``)."""
         rng = np.random.default_rng(seed)
         return {name: torch.tensor(
                     rng.integers(0, self.cfg.vocab_size, size=dims),
                     dtype=dtype, device=device)
                 for name, (dims, dtype) in self.input_specs(shape).items()}
 
-    # ---- serving: contiguous (oracle) ----
+    # ---- serving: prefill and contiguous decode ----
+    def prefill(self, params: dict, batch: dict,
+                cache_len: int | None = None) -> tuple[torch.Tensor, dict]:
+        """(last-position logits [B, Vpad], a fresh cache for
+        ``decode_step``)."""
+        return D.prefill(self.cfg, params, batch, cache_len)
+
     def decode_step(self, params: dict, cache: dict, token: torch.Tensor,
                     pos: torch.Tensor) -> torch.Tensor:
         return D.decode_step(self.cfg, params, cache, token, pos)

@@ -1,8 +1,9 @@
-"""Parameter specification trees for the dense decoder family.
+"""Parameter specification trees for the dense, ssm and hybrid families.
 
-Mirrors ``repro.models.params`` together with the dense branches of the
-reference's spec constructors (``stack._dense_layer_specs``,
-``attention.attn_specs``, ``layers.swiglu_specs``/``embed_specs``): one
+Mirrors ``repro.models.params`` together with the reference's spec
+constructors for these families (``stack.param_specs``,
+``attention.attn_specs``, ``layers.swiglu_specs``/``embed_specs``,
+``ssm.ssm_specs``): one
 declaration of every parameter's shape, dtype, logical axes and
 initializer.  Layer weights are stacked ``[L, ...]`` exactly as in the
 reference, so a parameter tree here and the reference's
@@ -166,20 +167,46 @@ def embed_specs(cfg: ModelConfig) -> dict:
     return specs
 
 
-def param_specs(cfg: ModelConfig) -> dict:
-    """The dense family's tree: embed, final norm, stacked [attn + SwiGLU]
-    layers.  Other families are later slices of the port."""
-    if cfg.family != "dense":
-        raise ValueError(f"the port builds the dense family only, "
-                         f"got {cfg.family!r} ({cfg.name})")
-    n = cfg.n_layers
+def _dense_layer_specs(cfg: ModelConfig, n: int) -> dict:
     return {
-        "embed": embed_specs(cfg),
-        "final_norm": scale(cfg.d_model),
-        "layers": {
-            "ln1": scale(cfg.d_model, n),
-            "attn": attn_specs(cfg, n),
-            "ln2": scale(cfg.d_model, n),
-            "mlp": swiglu_specs(cfg, n),
-        },
+        "ln1": scale(cfg.d_model, n),
+        "attn": attn_specs(cfg, n),
+        "ln2": scale(cfg.d_model, n),
+        "mlp": swiglu_specs(cfg, n),
     }
+
+
+def _ssm_layer_specs(cfg: ModelConfig, n: int) -> dict:
+    from repro_torch.models.ssm import ssm_specs  # local: ssm imports this
+    return {"ln": scale(cfg.d_model, n), "mamba": ssm_specs(cfg, n)}
+
+
+def _shared_attn_specs(cfg: ModelConfig) -> dict:
+    """zamba2's globally shared attention + MLP block (unstacked)."""
+    return {
+        "attn": attn_specs(cfg, None),
+        "mlp": swiglu_specs(cfg, None),
+        "ln_attn": scale(cfg.d_model),
+        "ln_mlp": scale(cfg.d_model),
+    }
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The tree of the families the port builds: embed, final norm and the
+    stacked layers; ``hybrid`` adds the shared attention block and one
+    site norm per group.  The other families are later slices."""
+    specs: dict[str, Any] = {"embed": embed_specs(cfg),
+                             "final_norm": scale(cfg.d_model)}
+    if cfg.family == "dense":
+        specs["layers"] = _dense_layer_specs(cfg, cfg.n_layers)
+    elif cfg.family == "ssm":
+        specs["layers"] = _ssm_layer_specs(cfg, cfg.n_layers)
+    elif cfg.family == "hybrid":
+        groups = cfg.n_layers // cfg.attn_every
+        specs["layers"] = _ssm_layer_specs(cfg, groups * (cfg.attn_every - 1))
+        specs["shared"] = _shared_attn_specs(cfg)
+        specs["site_norm"] = scale(cfg.d_model, groups)
+    else:
+        raise ValueError(f"the port builds the dense, ssm and hybrid "
+                         f"families, got {cfg.family!r} ({cfg.name})")
+    return specs

@@ -1,11 +1,21 @@
-"""The dense block stack: full-sequence forward for training.
+"""Per-family block stacks: the full-sequence forward for training.
 
-Ports the dense branch of ``repro.models.stack.forward``: embed, then per
-layer [RMSNorm, self-attention, residual, RMSNorm, SwiGLU, residual], then
-the final norm and fp32 logits over the padded vocab.  The reference scans
-over the stacked ``[L, ...]`` layer parameters; here a Python loop walks
-them, each leaf split once with ``unbind`` so the backward stacks the
-layers' gradients in one step.  Other families are later slices.
+Ports the dense, ssm and hybrid branches of ``repro.models.stack.forward``:
+embed, then
+
+* dense  — per layer [RMSNorm, self-attention, residual, RMSNorm, SwiGLU,
+  residual];
+* ssm    — per layer [RMSNorm, Mamba2, residual];
+* hybrid — per group, ``attn_every - 1`` Mamba2 layers, then the one
+  globally shared attention + SwiGLU block behind the group's site norm
+  (zamba2);
+
+then the final norm and fp32 logits over the padded vocab.  The reference
+scans over the stacked ``[L, ...]`` layer parameters; here a Python loop
+walks them, each leaf split once with ``unbind`` so the backward stacks
+the layers' gradients in one step.  Remat wraps each layer, and each call
+of the shared block, as the reference's scans do.  The other families are
+later slices.
 """
 from __future__ import annotations
 
@@ -19,6 +29,7 @@ from repro_torch.models import params as P
 from repro_torch.models.attention import full_attention
 from repro_torch.models.layers import (embed_tokens, logits_from, rmsnorm,
                                        swiglu)
+from repro_torch.models.ssm import mamba_block
 
 
 def _remat(fn: Callable, mode: str) -> Callable:
@@ -42,16 +53,46 @@ def _dense_block(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     return h + swiglu(p["mlp"], rmsnorm(p["ln2"], h, cfg.norm_eps))
 
 
+def _ssm_block(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    return x + mamba_block(cfg, p["mamba"], rmsnorm(p["ln"], x, cfg.norm_eps))
+
+
+def _shared_block(cfg: ModelConfig, p: dict, site_norm: torch.Tensor,
+                  x: torch.Tensor) -> torch.Tensor:
+    h = x + full_attention(
+        cfg, p["attn"],
+        rmsnorm(site_norm, rmsnorm(p["ln_attn"], x, cfg.norm_eps),
+                cfg.norm_eps))
+    return h + swiglu(p["mlp"], rmsnorm(p["ln_mlp"], h, cfg.norm_eps))
+
+
 def forward(cfg: ModelConfig, params: dict, batch: dict, *,
             remat: str = "none") -> tuple[torch.Tensor, dict]:
     """Full-sequence forward -> (logits [B,S,Vpad] fp32, metrics)."""
-    if cfg.family != "dense":
-        raise ValueError(f"the port's stack runs the dense family only, "
-                         f"got {cfg.family!r} ({cfg.name})")
+    fam = cfg.family
+    if fam not in ("dense", "ssm", "hybrid"):
+        raise ValueError(f"the port's stack runs the dense, ssm and hybrid "
+                         f"families, got {fam!r} ({cfg.name})")
     x = embed_tokens(params["embed"], batch["tokens"])
     per_layer = P.tree_map(lambda t: t.unbind(0), params["layers"])
-    body = _remat(lambda x, p: _dense_block(cfg, p, x), remat)
-    for i in range(cfg.n_layers):
-        x = body(x, P.tree_map(lambda ts: ts[i], per_layer))
+
+    def layer(i: int) -> dict:
+        return P.tree_map(lambda ts: ts[i], per_layer)
+
+    block = _dense_block if fam == "dense" else _ssm_block
+    body = _remat(lambda x, p: block(cfg, p, x), remat)
+    if fam != "hybrid":
+        for i in range(cfg.n_layers):
+            x = body(x, layer(i))
+    else:
+        groups = cfg.n_layers // cfg.attn_every
+        per = cfg.attn_every - 1
+        shared = _remat(lambda x, sn: _shared_block(cfg, params["shared"],
+                                                    sn, x), remat)
+        site_norms = params["site_norm"].unbind(0)
+        for g in range(groups):
+            for j in range(per):
+                x = body(x, layer(g * per + j))
+            x = shared(x, site_norms[g])
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return logits_from(params["embed"], cfg, x), {}

@@ -10,7 +10,11 @@ master, m and v.  ``apply`` keeps the reference's arithmetic, op for op
 the master copy), but works tensor by tensor and **in place**: master, m,
 v and the parameters are updated where they lie, and no tree-wide fp32 copy
 of the clipped gradients is made (at deepseek-7b width that copy alone
-would be 4 bytes per parameter).
+would be 4 bytes per parameter).  A large leaf is updated in slices along
+its first (stacked-layer) dimension, so the update's fp32 temporaries stay
+near ``SLICE_ELEMENTS`` each: the update is elementwise, so the slices give
+the same bits as one pass.  (mamba2-2.7b's stacked ``wxbc`` is 3.5 GB in
+fp32, and five temporaries of it do not fit beside the 45 GB state.)
 """
 from __future__ import annotations
 
@@ -21,6 +25,8 @@ import torch
 
 from repro_torch.configs.base import TrainConfig
 from repro_torch.models.params import leaves, tree_map
+
+SLICE_ELEMENTS = 1 << 26    # about 256 MB of fp32 a temporary
 
 
 class OptState(NamedTuple):
@@ -76,17 +82,27 @@ def apply(cfg: TrainConfig, state: OptState, grads: Any, params: Any
     b1, b2, eps, wd = cfg.beta1, cfg.beta2, cfg.eps, cfg.weight_decay
     c1 = 1 - b1 ** step.float()
     c2 = 1 - b2 ** step.float()
-    for g, p, master, m, v in zip(leaves(grads), leaves(params),
-                                  leaves(state.master), leaves(state.m),
-                                  leaves(state.v)):
-        g = g.float() * scale
-        gg = (1 - b2) * g
-        v.mul_(b2).add_(gg.mul_(g))            # b2 * v + (1 - b2) * g * g
-        m.mul_(b1).add_(g.mul_(1 - b1))        # b1 * m + (1 - b1) * g
-        vh = torch.div(v, c2).sqrt_().add_(eps)
-        u = torch.div(m, c1).div_(vh)          # mh / (sqrt(vh) + eps)
-        u.add_(wd * master)
-        master.sub_(u.mul_(lr))                # master - lr * (...)
-        p.copy_(master)
+    for tensors in zip(leaves(grads), leaves(params), leaves(state.master),
+                       leaves(state.m), leaves(state.v)):
+        for g, p, master, m, v in zip(*map(_slices, tensors)):
+            g = g.float() * scale
+            gg = (1 - b2) * g
+            v.mul_(b2).add_(gg.mul_(g))        # b2 * v + (1 - b2) * g * g
+            m.mul_(b1).add_(g.mul_(1 - b1))    # b1 * m + (1 - b1) * g
+            vh = torch.div(v, c2).sqrt_().add_(eps)
+            u = torch.div(m, c1).div_(vh)      # mh / (sqrt(vh) + eps)
+            u.add_(wd * master)
+            master.sub_(u.mul_(lr))            # master - lr * (...)
+            p.copy_(master)
     metrics = {"grad_norm": gnorm, "lr": lr}
     return params, OptState(step, state.master, state.m, state.v), metrics
+
+
+def _slices(t: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Views of ``t`` along its first dimension, each of at most
+    ``SLICE_ELEMENTS`` elements where a row allows (``t`` itself when it
+    is small or has no first dimension)."""
+    if t.dim() == 0 or t.numel() <= SLICE_ELEMENTS:
+        return (t,)
+    rows = max(SLICE_ELEMENTS // (t.numel() // t.shape[0]), 1)
+    return t.split(rows)

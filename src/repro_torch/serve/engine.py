@@ -18,7 +18,13 @@ CUDA kernel on a card).  The reference's ``kernel="gather"`` fallback is
 not ported yet.
 
 ``ServeEngine`` is the contiguous engine, one decode step per token over
-dense per-slot caches; it is the paged engine's oracle.
+per-slot caches; it is the paged engine's oracle, and the engine of the
+ssm and hybrid families, whose conv and SSM state has no paged form.  As
+in the reference, its serial prefill steps every slot for each prompt
+token and never resets a slot's state at admission: attention rows are
+rewritten idempotently, but each extra step advances the other lanes'
+conv and SSM state (ROADMAP caveat g), so an ssm stream depends on the
+admissions around it.
 
 The engines run on ``device`` ("cuda" unless the caller asks for "cpu")
 and raise when it is not there.  Each tick hands the device freshly
@@ -427,8 +433,9 @@ class PagedServeEngine:
                  device: str | torch.device = "cuda"):
         if model.cfg.family != "dense":
             raise ValueError(
-                f"the port's paged engine serves the dense family; "
-                f"{model.cfg.family!r} is a later slice")
+                f"the port's paged engine needs an attention cache (dense; "
+                f"moe is a later slice); {model.cfg.family!r} serves through "
+                f"ServeEngine")
         if admit_every < 1:
             raise ValueError(f"admit_every must be >= 1, got {admit_every}")
         if kernel != "paged":

@@ -10,8 +10,9 @@ wrapper calls it on the card.  Shared memory starts as NaN, so a read of
 an unwritten slot shows.
 
 This holds each kernel's indexing, masking, online softmax and merge to
-its plain version before it ever runs on a GPU: the paged-attention kernel
-and the flash-attention kernel (output and log-sum-exp).  It says nothing of what ``nvcc``
+its plain version before it ever runs on a GPU: the paged-attention kernel,
+the flash-attention kernel (output and log-sum-exp) and the SSD scan
+kernel (output and final state).  It says nothing of what ``nvcc``
 accepts, of timing, or of the memory model (the stand-in is sequentially
 consistent).  Skips where no C++20 compiler is found.
 """
@@ -28,6 +29,7 @@ from repro_torch.kernels.build import CSRC
 from repro_torch.kernels.flash_attention import (flash_attention_plain,
                                                  logsumexp_plain)
 from repro_torch.kernels.paged_attention import paged_attention_plain
+from repro_torch.kernels.ssd_scan import ssd_scan_plain
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
@@ -48,7 +50,7 @@ using std::min;
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __restrict__
 struct uint2 { unsigned x, y; };
 struct uint4 { unsigned x, y, z, w; };
@@ -295,3 +297,77 @@ def test_emulated_flash_kernel_refuses_bad_head_dims(emulated_flash):
                             q.data_ptr(), q.data_ptr(), 1, 8, d, 1.0, 1, 0,
                             None)
         assert rc != 0, d
+
+
+# -------------------------------------------------------------------- ssd
+
+
+@pytest.fixture(scope="module")
+def emulated_ssd(tmp_path_factory):
+    """The SSD scan kernel source built for the CPU stand-in."""
+    fn = _build_emulated("ssd_scan", tmp_path_factory.mktemp(
+        "emulated_ssd")).ssd_scan_launch
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _ssd_launch(fn, x, dt, a, b_in, c_in, chunk):
+    bsz, s, h, p = x.shape
+    g, n = b_in.shape[2:]
+    y = torch.full_like(x, float("nan"))
+    fin = torch.full((bsz, h, p, n), float("nan"))
+    rc = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_in.data_ptr(),
+            c_in.data_ptr(), y.data_ptr(), fin.data_ptr(), bsz, s, h, p, g,
+            n, chunk, 1 if x.dtype == torch.bfloat16 else 0, None)
+    return rc, y, fin
+
+
+# (b, s, h, p, g, n, chunk): S = chunk and S = 4 x chunk, G 1 and 2, a
+# chunk below one 32-row tile and one that is not a whole number of
+# tiles, P and N that are not powers of two (24, 40, 20, 36) beside the
+# archs' 32 and 64
+SSD_CASES = [(2, 64, 4, 32, 2, 16, 16), (1, 48, 2, 24, 1, 20, 48),
+             (1, 160, 2, 40, 2, 36, 40), (2, 64, 2, 64, 1, 64, 64)]
+
+
+@pytest.mark.parametrize("case", SSD_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_emulated_ssd_kernel_matches_plain(emulated_ssd, case, dtype):
+    """y and the final state against the plain version (the reference's
+    2e-3; in bf16 y is held at one bf16 step plus 1e-3, both sides rounding
+    one fp32 result once)."""
+    b, s, h, p, g, n, chunk = case
+    rng = np.random.default_rng(sum(case))
+    x = torch.tensor(rng.standard_normal((b, s, h, p)),
+                     dtype=torch.float32).to(dtype)
+    dt = torch.tensor(rng.uniform(0.001, 0.3, (b, s, h)), dtype=torch.float32)
+    a = torch.tensor(-rng.uniform(0.1, 1.0, h), dtype=torch.float32)
+    b_in, c_in = (torch.tensor(rng.standard_normal((b, s, g, n)),
+                               dtype=torch.float32).to(dtype)
+                  for _ in range(2))
+    rc, y, fin = _ssd_launch(emulated_ssd, x, dt, a, b_in, c_in, chunk)
+    assert rc == 0
+    y_p, fin_p = ssd_scan_plain(x, dt, a, b_in, c_in, chunk)
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(y.float(), y_p.float(), rtol=2 ** -7,
+                                   atol=1e-3)
+    else:
+        torch.testing.assert_close(y, y_p, rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(fin, fin_p, rtol=2e-3, atol=2e-3)
+
+
+def test_emulated_ssd_kernel_refuses_what_it_does_not_take(emulated_ssd):
+    """A chunk that does not divide S, groups that do not divide the heads,
+    P or N above 128 are refused before any launch
+    (cudaErrorInvalidValue), never computed wrongly."""
+    z = torch.zeros(1 << 16)
+    for s, h, p, g, n, chunk in ((48, 2, 8, 1, 8, 32), (32, 3, 8, 2, 8, 16),
+                                 (32, 2, 136, 1, 8, 16),
+                                 (32, 2, 8, 1, 136, 16)):
+        rc = emulated_ssd(*[z.data_ptr()] * 7, 1, s, h, p, g, n, chunk, 0,
+                          None)
+        assert rc != 0, (s, h, p, g, n, chunk)

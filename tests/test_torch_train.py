@@ -219,6 +219,30 @@ def test_adamw_apply_matches_reference():
                                        rtol=1e-6, atol=1e-6)
 
 
+def test_adamw_slices_give_the_same_bits(monkeypatch):
+    """A leaf updated in slices along its first dimension (as large
+    stacked leaves are) ends bit for bit where one pass over it ends:
+    parameters, master, m and v, over two steps with clipping active."""
+    state = _ref_state("bfloat16")
+    rng = np.random.default_rng(4)
+    grads = P.from_jax(jax.tree.map(lambda a: rng.standard_normal(
+        a.shape).astype(np.float32) * 0.05, state.params))
+    grads = P.tree_map(lambda t: t.to(torch.bfloat16), grads)
+    runs = []
+    for elements in (adamw.SLICE_ELEMENTS, 1000):
+        monkeypatch.setattr(adamw, "SLICE_ELEMENTS", elements)
+        t_state = train_state_from_jax(state)
+        params, opt = t_state.params, t_state.opt
+        for _ in range(2):
+            params, opt, _ = adamw.apply(TrainConfig(warmup_steps=2),
+                                         opt, grads, params)
+        runs.append([t for tree in (params, opt.master, opt.m, opt.v)
+                     for t in P.leaves(tree)])
+    assert len(adamw._slices(params["embed"]["tok"])) > 1   # sliced: 1000
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("variant,tol", [
     ({}, 1e-4), ({"microbatches": 2}, 1e-4),
     ({"grad_compress": "int8_ef"}, 1e-3)])
