@@ -72,8 +72,10 @@ non-zero without printing a result:
 14. ssm_serve, hybrid_serve — mamba2-2.7b and zamba2-2.7b at full width
                   and depth (seeded bf16 weights) through the contiguous
                   ``ServeEngine``: 4 requests of 32-64 prompt tokens, 16
-                  new tokens each, one sampled.  Then the prefill check:
-                  ``Model.prefill`` of a 512-token prompt (one SSD launch a
+                  new tokens each, one sampled.  Then the prefill check, at
+                  full width cut to 16 layers (mamba2) and two groups
+                  (zamba2): ``Model.prefill`` of a 512-token prompt (one SSD
+                  launch a
                   Mamba2 layer, one flash launch a shared block; counts
                   zeroed just before) continued by ``decode_step``, against
                   the prompt stepped one token at a time, in f32.
@@ -89,6 +91,33 @@ non-zero without printing a result:
 17. ssd_timing  — SSD kernel and plain version at mamba2's training call
                   (x [4, 2048, 80, 64] bf16, chunk 256) and prefill call
                   (x [1, 512, 80, 64]), L2 flushed, beside the bytes bound.
+18. hh_kernel   — the HH soma kernel against its plain version: the
+                  ``tests/test_kernels.py`` sweep (n 7-4096, dt 0.0125 and
+                  0.025, its input distributions) plus the ring's 131,072
+                  cells and inputs at v = -40 and -55 mV (``_vtrap``'s
+                  limits); v, m, h and n within 3e-5.
+19. gather      — the paged engine's gather pathway: full-width
+                  deepseek-7b cut to 4 layers, f32 weights and caches, on
+                  the integration workload; ``compare_engines`` ok with
+                  ``kernel="gather"`` and ``kernel="paged"``, greedy and
+                  sampled, and the gather streams equal to the paged
+                  kernel's.  Then the serve phase's bf16 trace (full depth)
+                  once through ``kernel="gather"``: tokens/s and agreement
+                  with the paged run, measured, not checked.
+20. neuro       — the ring simulation at the repo's production scale
+                  (``benchmarks/ring_podscale.py``: 131,072 cells of 32
+                  compartments, 200 ms, 5 ms delay, 40 epochs of 200 dt
+                  steps) on one card, as Arbor's single ring and as
+                  NEURON's ringtest of 256 rings: through the HH kernel
+                  (counts zeroed just before, one launch a dt step, two
+                  runs: warm and timed) and through the plain version;
+                  spike counts and wavefronts identical, final state within
+                  1e-3 mV; each ring's own dynamics checked; one epoch
+                  under ``torch.profiler``.  A small ring on the CPU (plain
+                  version) and on the card must give the same spikes.
+21. hh_timing   — the HH kernel and its plain version at the ring's
+                  131,072 cells, L2 flushed, median of 50, beside the bytes
+                  bound.
 
 Then the ``kernels`` summary line, the card's name and power limit as
 ``nvidia-smi`` reports them, and last ``{"ok": true, "device": ...}``.
@@ -119,6 +148,8 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     FlashAttention, flash_attention_cuda, flash_attention_plain,
     logsumexp_plain)
+from repro_torch.kernels.hh_neuron import (hh_step_cuda,  # noqa: E402
+                                           hh_step_plain)
 from repro_torch.launch.train import train as train_cli  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention_cuda, paged_attention_plain)
@@ -127,8 +158,13 @@ from repro_torch.kernels.ssd_scan import (SsdScan, ssd_scan_backward,  # noqa: E
 from repro_torch.models import build  # noqa: E402
 from repro_torch.models import params as P  # noqa: E402
 from repro_torch.models.decode import decode_paged_chunk  # noqa: E402
+from repro_torch.neuro import sim as neuro_sim  # noqa: E402
+from repro_torch.neuro.cable import (CellConfig, CellState,  # noqa: E402
+                                     init_state)
+from repro_torch.neuro.ring import RingConfig  # noqa: E402
 from repro_torch.serve import (PagedServeEngine, Request,  # noqa: E402
-                               SamplingParams, ServeEngine)
+                               SamplingParams, ServeEngine, compare_engines,
+                               token_matrix)
 from repro_torch.train.step import (init_train_state,  # noqa: E402
                                     make_train_step)
 
@@ -148,9 +184,13 @@ FULL_WIDTH = [("deepseek-7b", 32, 1, 128), ("phi3-medium-14b", 10, 4, 128),
 KERNEL_REPLACES = {
     "paged_attention": "src/repro/kernels/paged_attention.py:102",
     "flash_attention": "src/repro/kernels/flash_attention.py:76",
-    "ssd_scan": "src/repro/kernels/ssd_scan.py:69"}
-KERNEL_SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu"
-                  for name in KERNEL_REPLACES}
+    "ssd_scan": "src/repro/kernels/ssd_scan.py:69",
+    "hh_step": "src/repro/kernels/hh_neuron.py:73"}
+KERNEL_SOURCES = {name: f"src/repro_torch/kernels/csrc/{src}.cu"
+                  for name, src in (("paged_attention", "paged_attention"),
+                                    ("flash_attention", "flash_attention"),
+                                    ("ssd_scan", "ssd_scan"),
+                                    ("hh_step", "hh_neuron"))}
 # training: full width, depth cut to fit AdamW's 16 bytes per parameter
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 8, 2048, 4, 4
 PARITY_LAYERS, PARITY_SEQ = 2, 256
@@ -158,8 +198,13 @@ GRAD_TOL = 2e-2   # relative norm error of loss and gradients, bf16
 TRAJ_TOL = 1e-3   # relative error of each training loss, kernel vs plain
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
-    print(json.dumps(obj), flush=True)
+    """One JSON line; ``t_s`` is the seconds since the script started."""
+    print(json.dumps({**obj, "t_s": round(time.perf_counter() - T0, 1)}),
+          flush=True)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -428,7 +473,9 @@ def phase_serve(dev):
           "report": rep,
           "replay_streams_equal": replayed == streams,
           "first_tokens": {rid: out[:4] for rid, out in streams.items()}})
-    return model, params, replay, recorder.best, launches
+    paged = {"streams": streams, "tokens_out_per_s": rep["tokens_out"] / wall,
+             "wall_s": wall}
+    return model, params, replay, recorder.best, launches, paged
 
 
 def phase_profile(model, params, dev, warm=30, ticks=10) -> None:
@@ -728,6 +775,8 @@ def kernel_kind(name: str) -> str:
         return "flash_attention"
     if "ssd_scan" in low:
         return "ssd_scan"
+    if "hh_step" in low:
+        return "hh_step"
     if any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass")):
         return ("matmul_f32" if "f32f32" in low or "sgemm" in low
                 else "matmul_bf16")
@@ -933,6 +982,9 @@ SSD_TOL = 2e-3          # the reference's SSD tolerance, f32
 SSM_SLOTS, SSM_REQUESTS, SSM_MAX_NEW, SSM_MAX_LEN = 4, 4, 16, 256
 PREFILL_LEN = 512       # two 256-token chunks
 PREFILL_TOL = 1e-3      # prefill vs one-token recurrence, f32, relative
+# the prefill check's depth (full width): stepping 512 tokens one at a time
+# through all 64 (54) layers took 36 s an arch on an H100
+PREFILL_LAYERS = {"mamba2-2.7b": 16, "zamba2-2.7b": 12}
 SSM_TRAIN_SEQ, SSM_TRAIN_BATCH, SSM_TRAIN_STEPS = 2048, 4, 4
 
 
@@ -1027,20 +1079,23 @@ class _PlainSsd(torch.autograd.Function):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """The model's flash and SSD calls go to their plain versions, on the
-    card: the reference side of the parity phases (the port has no
+    """The model's flash, SSD and HH calls go to their plain versions, on
+    the card: the reference side of the parity phases (the port has no
     switch)."""
-    saved = ops.ssd_scan
+    saved = ops.ssd_scan, ops.hh_step
 
     def plain_ssd(x, dt, a, b_in, c_in, chunk):
         return _PlainSsd.apply(x, dt, a, b_in, c_in, min(chunk, x.shape[1]))
 
-    ops.ssd_scan = plain_ssd
+    def plain_hh(v0, m, h, n, g_syn, i_axial, dt, i_ext):
+        return hh_step_plain(v0, m, h, n, g_syn, i_axial, i_ext, dt=dt)
+
+    ops.ssd_scan, ops.hh_step = plain_ssd, plain_hh
     try:
         with plain_flash():
             yield
     finally:
-        ops.ssd_scan = saved
+        ops.ssd_scan, ops.hh_step = saved
 
 
 def phase_ssm_train_parity(dev) -> None:
@@ -1172,7 +1227,8 @@ def ssm_requests(cfg) -> list:
 def phase_stateful_serve(arch, dev) -> dict:
     """Full width and depth, seeded bf16 weights, through the contiguous
     ``ServeEngine`` (the ssm and hybrid caches have no paged form), then
-    the prefill check on the same weights."""
+    the prefill check on the same width cut in depth (``PREFILL_LAYERS``),
+    its weights seeded alike."""
     cfg = ALL_ARCHS[arch]
     model = build(cfg)
     phase_t0 = time.perf_counter()
@@ -1218,8 +1274,11 @@ def phase_stateful_serve(arch, dev) -> dict:
            "tokens_processed_per_s": (rep["tokens_out"] + prompt_tokens) / wall,
            "launches": launches,
            "first_tokens": {r.rid: r.out[:4] for r in done}}
-    del eng
-    out["prefill"] = prefill_check(model, params, dev)
+    del eng, params
+    cut = build(dataclasses.replace(cfg, n_layers=PREFILL_LAYERS[arch]))
+    out["prefill"] = prefill_check(cut, cut.init_params(
+        torch.Generator(device=dev).manual_seed(SEED), dev), dev)
+    out["prefill"]["layers"] = PREFILL_LAYERS[arch]
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     out["phase_s"] = time.perf_counter() - phase_t0
     emit(out)
@@ -1330,6 +1389,329 @@ def phase_ssd_timing(dev) -> tuple[float, dict]:
     return rows["train"]["max_abs_err"], rows["train"]
 
 
+# ------------------------------------------------------------- HH kernel
+
+HH_SWEEP_N = (7, 128, 1000, 4096, 131072)   # tests/test_kernels.py + ring
+HH_SWEEP_DT = (0.0125, 0.025)
+HH_TOL = 3e-5           # the reference's HH tolerance (rtol and atol)
+# fp32 operations of one cell's update, each exp and division counted once
+HH_OPS_PER_CELL = 90
+FP32_OPS_PER_S = PEAK_OPS_PER_S[torch.float32]
+
+
+def hh_inputs(n, seed, dev, v=None) -> list:
+    """The seven [n] fp32 inputs with tests/test_kernels.py's distributions
+    (v in [-90, 30], gates in [0, 1], g_syn in [0, 8], i_axial in [-20,
+    20], i_ext in [0, 10]); ``v`` overrides the voltages, repeated."""
+    rng = np.random.default_rng(seed)
+    arrays = [rng.uniform(-90, 30, n), rng.uniform(0, 1, n),
+              rng.uniform(0, 1, n), rng.uniform(0, 1, n),
+              rng.uniform(0, 8, n), rng.uniform(-20, 20, n),
+              rng.uniform(0, 10, n)]
+    if v is not None:
+        arrays[0] = np.resize(np.asarray(v, np.float64), n)
+    return [torch.tensor(a, dtype=torch.float32, device=dev) for a in arrays]
+
+
+def hh_compare(args, dt) -> float:
+    """Kernel against plain on the card: every output finite and within
+    HH_TOL.  Returns the max abs error."""
+    got = hh_step_cuda(*args, dt=dt)
+    want = hh_step_plain(*args, dt=dt)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, a, b in zip("vmhn", got, want):
+        check(bool(torch.isfinite(a).all()), f"non-finite hh kernel {name}")
+        err = max(err, float((a - b).abs().max()))
+        check(torch.allclose(a, b, rtol=HH_TOL, atol=HH_TOL),
+              f"hh kernel != plain: {name}, n {a.numel()}, dt {dt}")
+    return err
+
+
+def phase_hh_kernel(dev) -> float:
+    cases = [(n, dt, None) for n in HH_SWEEP_N for dt in HH_SWEEP_DT]
+    cases += [(4096, dt, [-40.0, -55.0]) for dt in HH_SWEEP_DT]
+    err = max(hh_compare(hh_inputs(n, SEED + i, dev, v), dt)
+              for i, (n, dt, v) in enumerate(cases))
+    emit({"phase": "hh_kernel", "cases": len(cases), "n": list(HH_SWEEP_N),
+          "dt": list(HH_SWEEP_DT), "vtrap_limits_mV": [-40.0, -55.0],
+          "max_abs_err": err, "tolerance": HH_TOL})
+    return err
+
+
+def phase_hh_timing(dev) -> tuple[float, dict]:
+    """The kernel and its plain version at the ring's 131,072 cells, L2
+    flushed before each launch, median of 50; no single PyTorch call
+    computes the update, so no library time."""
+    n, dt = RING_CELLS, 0.025
+    args = hh_inputs(n, SEED, dev)
+    err = hh_compare(args, dt)
+    bytes_ = 11 * n * 4                 # 7 inputs read, 4 outputs written
+    flops = HH_OPS_PER_CELL * n
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_OPS_PER_S * 1e3
+    t_kernel = time_cold(lambda: hh_step_cuda(*args, dt=dt), dev, n=50)
+    t_plain = time_cold(lambda: hh_step_plain(*args, dt=dt), dev, n=50)
+    bound = max(t_bytes, t_ops)
+    timing = {"phase": "hh_timing", "cells": n, "dt": dt, "ms": t_kernel,
+              "plain_ms": t_plain, "library_ms": None, "max_abs_err": err,
+              "bound_ms": bound,
+              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+              "bytes": bytes_, "flops": flops,
+              "achieved_gb_per_s": bytes_ / t_kernel / 1e6,
+              "bound_share": bound / t_kernel, "gpu": nvidia_smi()}
+    emit(timing)
+    return err, timing
+
+
+# ------------------------------------------------------------------ neuro
+
+# benchmarks/ring_podscale.py's production ring, whole on one card
+RING_CELLS, RING_COMPARTMENTS, RING_T_END, RING_DELAY = 131072, 32, 200.0, 5.0
+RING_FORMS = (("arbor_ring", 1), ("ringtest", 256))   # ring_scaling.py's
+RING_STATE_TOL = 1e-3   # mV (gates and conductance: the same, absolute)
+
+
+def ring_config(n_cells, n_rings, t_end, compartments) -> RingConfig:
+    return RingConfig(n_cells=n_cells, n_rings=n_rings, t_end_ms=t_end,
+                      delay_ms=RING_DELAY,
+                      cell=CellConfig(n_compartments=compartments))
+
+
+def epoch_profile(cfg, dev) -> dict:
+    """One epoch of ``cfg`` (its first: the stimulus is on), timed on the
+    host clock, then again under ``torch.profiler``: the device's busy
+    share is the profiled device time over the unprofiled wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    one = dataclasses.replace(cfg, t_end_ms=cfg.delay_ms)
+    state = init_state(cfg.n_cells, cfg.cell, dev)
+    neuro_sim.run(one, state, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    neuro_sim.run(one, state, dev)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        neuro_sim.run(one, state, dev)
+        torch.cuda.synchronize()
+    by_kernel = device_ms_by_kernel(prof)
+    device_ms = sum(by_kernel.values())
+    hh_ms = sum(v for k, v in by_kernel.items() if "hh_step" in k)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    return {"dt_steps": one.delay_steps, "wall_ms": wall_ms,
+            "device_ms": device_ms, "device_busy_share": device_ms / wall_ms,
+            "hh_kernel_ms": hh_ms, "hh_share_of_device": hh_ms / device_ms,
+            "top_kernels_ms": {k[:60]: v for k, v in top}}
+
+
+def ring_dynamics_ok(cfg, res) -> bool:
+    """The repo's own checks of a ring run (tests/test_neuro.py), as they
+    hold at 32 compartments: every ring spikes alike; in each, the wave
+    has fired cells 0..k-1 once each and no other; the front advances at
+    most one cell an epoch and never recedes (an epoch may pass without a
+    spike: a 32-compartment cell sometimes takes longer than the 5 ms
+    delay to fire, so its spike falls into the next epoch); and the wave
+    covers at least half the epochs."""
+    front = res.wavefront.cpu()
+    fired = front[front >= 0]
+    counts = res.spike_counts.cpu().reshape(cfg.n_rings, cfg.cells_per_ring)
+    k = int(counts[0].sum())
+    wave = torch.zeros(cfg.cells_per_ring, dtype=counts.dtype)
+    wave[:k] = 1
+    steps = fired[1:] - fired[:-1]
+    return (bool((counts == wave).all())
+            and bool(((steps >= 0) & (steps <= 1)).all())
+            and (cfg.n_rings > 1 or int(front.max()) == k - 1)
+            and 2 * k >= cfg.n_epochs
+            and res.total_spikes == cfg.n_rings * k)
+
+
+def phase_neuro(dev) -> tuple[int, list]:
+    # a small ring through the plain version on the CPU and through the
+    # kernel on the card (tests/test_neuro.py's first ring)
+    small = ring_config(32, 1, 40.0, 4)
+    cpu, card = (neuro_sim.simulate(small, device=d) for d in ("cpu", dev))
+    check(torch.equal(cpu.spike_counts, card.spike_counts.cpu())
+          and torch.equal(cpu.wavefront, card.wavefront.cpu()),
+          f"small ring: card spikes {card.spike_counts.tolist()} != CPU "
+          f"{cpu.spike_counts.tolist()}")
+    rows, main_launches = [], 0
+    for name, n_rings in RING_FORMS:
+        cfg = ring_config(RING_CELLS, n_rings, RING_T_END, RING_COMPARTMENTS)
+        steps = cfg.n_epochs * cfg.delay_steps
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        got = neuro_sim.simulate(cfg, device=dev)
+        launches = dict(ops.LAUNCHES)
+        check(launches["hh_step"] == 2 * steps
+              and sum(launches.values()) == launches["hh_step"],
+              f"{name}: launches {launches}, expected hh_step once a dt "
+              f"step, two runs of {steps} steps (warm and timed)")
+        with plain_kernels():
+            want = neuro_sim.simulate(cfg, device=dev)
+        check(ops.LAUNCHES == launches, "the plain run launched a kernel")
+        state_err = {f: float((a - b).abs().max())
+                     for f, a, b in zip(CellState._fields, got.state,
+                                        want.state)}
+        same_counts = torch.equal(got.spike_counts, want.spike_counts)
+        same_fronts = torch.equal(got.wavefront, want.wavefront)
+        check(same_counts and same_fronts,
+              f"{name}: kernel spikes {got.total_spikes} fronts "
+              f"{got.wavefront.tolist()} != plain {want.total_spikes} "
+              f"{want.wavefront.tolist()}")
+        check(max(state_err.values()) <= RING_STATE_TOL,
+              f"{name}: final state kernel vs plain {state_err}")
+        check(ring_dynamics_ok(cfg, got), f"{name}: ring dynamics off: "
+              f"{got.total_spikes} spikes, fronts {got.wavefront.tolist()}")
+        row = {"form": name, "cells": cfg.n_cells, "rings": n_rings,
+               "compartments": RING_COMPARTMENTS, "t_end_ms": RING_T_END,
+               "epochs": cfg.n_epochs, "dt_steps": steps,
+               "total_spikes": got.total_spikes,
+               "wavefront_last": int(got.wavefront[-1]),
+               "wall_s": got.wall_s, "plain_wall_s": want.wall_s,
+               "dt_steps_per_s": steps / got.wall_s,
+               "cell_steps_per_s": steps * cfg.n_cells / got.wall_s,
+               "hh_launches": launches["hh_step"],
+               "spikes_equal_plain": same_counts,
+               "wavefront_equal_plain": same_fronts,
+               "state_max_abs_err_vs_plain": state_err,
+               "state_tolerance": RING_STATE_TOL,
+               "epoch_profile": epoch_profile(cfg, dev)}
+        emit({"phase": "neuro", **row})
+        rows.append(row)
+        if n_rings == 1:
+            main_launches = launches["hh_step"]
+        del got, want
+    return main_launches, rows
+
+
+# ----------------------------------------------------------------- gather
+
+GATHER_LAYERS = 4       # full width, f32: 1.7 GB of embeddings, 0.8 a layer
+GATHER_GEOM = dict(slots=2, max_len=64, block_size=8, chunk=4)
+
+
+class F32Caches:
+    """The model with its caches declared in f32, so an f32 engine keeps KV
+    at the weights' precision (the model declares bf16 caches)."""
+
+    def __init__(self, model):
+        self.model = model
+        self.cfg = model.cfg
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+    @staticmethod
+    def _f32(specs):
+        return P.tree_map(lambda s: dataclasses.replace(
+            s, dtype=torch.float32), specs)
+
+    def cache_specs(self, batch, seq_len):
+        return self._f32(self.model.cache_specs(batch, seq_len))
+
+    def paged_cache_specs(self, num_blocks, block_size):
+        return self._f32(self.model.paged_cache_specs(num_blocks, block_size))
+
+    def zero_cache(self, batch, seq_len, device):
+        return P.tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
+                                                device=device),
+                          self.cache_specs(batch, seq_len))
+
+
+def gather_requests(cfg) -> list:
+    """tests/test_integration.py's oracle trace at the full vocab: a
+    16-token shared prefix, four tails of 3-6 tokens, 6 new tokens each."""
+    rng = np.random.default_rng(11)
+    shared = rng.integers(0, cfg.vocab_size, size=16).tolist()
+    tails = [rng.integers(0, cfg.vocab_size, size=3 + i).tolist()
+             for i in range(4)]
+    return [Request(rid=i, prompt=shared + tails[i], max_new=6)
+            for i in range(4)]
+
+
+def phase_gather(dev) -> None:
+    """Both pathways of the paged engine against the contiguous oracle
+    (``compare_engines``), greedy and sampled, f32; and the gather
+    pathway's streams against the paged kernel's."""
+    cfg = dataclasses.replace(ALL_ARCHS[ARCH], n_layers=GATHER_LAYERS)
+    model = F32Caches(build(cfg))
+    params = P.tree_map(lambda t: t.float(), model.init_params(
+        torch.Generator(device=dev).manual_seed(SEED), dev))
+    sampled = SamplingParams(temperature=0.8, top_k=16, top_p=0.9, seed=2)
+    streams, verdicts, launches = {}, {}, {}
+    for kernel in ("gather", "paged"):
+        for name, sp in (("greedy", None), ("sampled", sampled)):
+            ops.reset_launches()
+            report = compare_engines(
+                model, params, lambda: gather_requests(cfg), **GATHER_GEOM,
+                sampling=sp, engine_kwargs={"paged": {"kernel": kernel}},
+                device=dev)
+            launches[f"{kernel}/{name}"] = ops.LAUNCHES["paged_attention"]
+            check(report.ok, f"compare_engines kernel={kernel} {name}: "
+                             f"{report.summary()['verdicts']}")
+            streams[kernel, name] = report.b.value
+            verdicts[f"{kernel}/{name}"] = report.summary()["verdicts"]
+    for name in ("greedy", "sampled"):
+        check(np.array_equal(streams["gather", name], streams["paged", name]),
+              f"gather streams != paged kernel streams ({name}):\n"
+              f"{streams['gather', name]}\n{streams['paged', name]}")
+        check(launches[f"gather/{name}"] == 0
+              and launches[f"paged/{name}"] > 0,
+              f"paged_attention launches by pathway: {launches}")
+    emit({"phase": "gather", "arch": cfg.name, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "dtype": "float32", **GATHER_GEOM,
+          "requests": 4, "verdicts": verdicts,
+          "paged_attention_launches": launches,
+          "gather_equals_paged": True,
+          "streams": streams["gather", "greedy"].tolist()})
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_gather_serve(model, params, paged, dev) -> None:
+    """The serve phase's bf16 trace once through ``kernel="gather"`` at full
+    width and depth: throughput and agreement with the paged run are
+    measurements (bf16 attention rounds at other points on the two
+    pathways, so streams may part after a near tie)."""
+    cfg = model.cfg
+    warm = PagedServeEngine(model, params, slots=2, max_len=64,
+                            block_size=BLOCK, chunk=CHUNK, num_blocks=16,
+                            kernel="gather", device=dev)
+    warm.run([Request(rid=0, prompt=list(range(20)), max_new=3)])
+    del warm
+    eng = PagedServeEngine(model, params, slots=SLOTS, max_len=MAX_LEN,
+                           block_size=BLOCK, chunk=CHUNK, kernel="gather",
+                           device=dev)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    done = eng.run(serve_requests(cfg))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rep = eng.report()
+    check(rep["served"] == N_REQUESTS and rep["kernel"] == "gather",
+          f"gather serve: {rep['served']} served, kernel {rep['kernel']}")
+    check(not any(ops.LAUNCHES.values()),
+          f"the gather pathway launched {ops.LAUNCHES}")
+    got = {r.rid: r.out for r in done}
+    ref = paged["streams"]
+    same = sum(a == b for rid in ref for a, b in zip(got[rid], ref[rid]))
+    lead = [next((i for i, (a, b) in enumerate(zip(got[rid], ref[rid]))
+                  if a != b), len(ref[rid])) for rid in sorted(ref)]
+    emit({"phase": "gather_serve", "arch": cfg.name, "layers": cfg.n_layers,
+          "dtype": "bfloat16", "wall_s": wall,
+          "decode_steps": rep["decode_steps"],
+          "ms_per_tick": 1e3 * wall / rep["decode_steps"],
+          "tokens_out_per_s": rep["tokens_out"] / wall,
+          "paged_tokens_out_per_s": paged["tokens_out_per_s"],
+          "prefix_hit_rate": rep["prefix_hit_rate"],
+          "token_agreement_with_paged": same / sum(map(len, ref.values())),
+          "requests_equal_to_paged": sum(got[r] == ref[r] for r in ref),
+          "leading_tokens_equal": lead})
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1350,11 +1732,14 @@ def main() -> int:
     phase_build()
     phase_kernel(dev)
     phase_flash_kernel(dev)
+    phase_hh_kernel(dev)
     phase_reference(dev)
-    model, params, replay, best, launches = phase_serve(dev)
+    phase_gather(dev)
+    model, params, replay, best, launches, paged = phase_serve(dev)
     err, timing = phase_parity_and_timing(replay, best, dev)
     del replay, best
     phase_profile(model, params, dev)
+    phase_gather_serve(model, params, paged, dev)
     del model, params          # free the serving model before training
     torch.cuda.empty_cache()
     phase_train_parity(dev)
@@ -1372,10 +1757,14 @@ def main() -> int:
     ssm_launches = phase_ssm_train(dev)
     torch.cuda.empty_cache()
     ssd_err, ssd = phase_ssd_timing(dev)
+    torch.cuda.empty_cache()
+    hh_launches, _ = phase_neuro(dev)
+    hh_err, hh = phase_hh_timing(dev)
     rows = {"paged_attention": (launches["paged_attention"], err, timing),
             "flash_attention": (train_launches["flash_attention"], flash_err,
                                 flash),
-            "ssd_scan": (ssm_launches["ssd_scan"], ssd_err, ssd)}
+            "ssd_scan": (ssm_launches["ssd_scan"], ssd_err, ssd),
+            "hh_step": (hh_launches, hh_err, hh)}
     emit({"kernels": [{
         "name": name, "route": "cuda", "source": KERNEL_SOURCES[name],
         "replaces": KERNEL_REPLACES[name], "launches": n,

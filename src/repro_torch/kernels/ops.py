@@ -14,12 +14,13 @@ import torch
 
 from repro_torch.kernels.flash_attention import (FlashAttention,
                                                  flash_attention_plain)
+from repro_torch.kernels.hh_neuron import hh_step_cuda, hh_step_plain
 from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                  paged_attention_plain)
 from repro_torch.kernels.ssd_scan import SsdScan, ssd_scan_plain
 
 LAUNCHES: dict[str, int] = {"paged_attention": 0, "flash_attention": 0,
-                            "ssd_scan": 0}
+                            "ssd_scan": 0, "hh_step": 0}
 
 
 def reset_launches() -> None:
@@ -76,3 +77,17 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         LAUNCHES["ssd_scan"] += 1
         return out
     raise ValueError(f"ssd_scan has no kernel for device {x.device}")
+
+
+def hh_step(v0: torch.Tensor, m: torch.Tensor, h: torch.Tensor,
+            n: torch.Tensor, g_syn: torch.Tensor, i_axial: torch.Tensor,
+            dt: float, i_ext: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The fused HH soma update -> ``(v, m, h, n)``, all ``[N]`` fp32; the
+    signature of ``neuro.cable.hh_soma_update``, as in the reference."""
+    if v0.device.type == "cpu":
+        return hh_step_plain(v0, m, h, n, g_syn, i_axial, i_ext, dt=dt)
+    if v0.device.type == "cuda":
+        out = hh_step_cuda(v0, m, h, n, g_syn, i_axial, i_ext, dt=dt)
+        LAUNCHES["hh_step"] += 1
+        return out
+    raise ValueError(f"hh_step has no kernel for device {v0.device}")

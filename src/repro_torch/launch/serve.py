@@ -9,8 +9,10 @@ from a ``torch.Generator``).  Runs on the GPU unless ``--device cpu`` is
 given, and fails when asked for a GPU that is not there.  ``--engine
 contiguous`` serves through the oracle engine; the ssm and hybrid archs
 (``mamba2-2.7b``, ``zamba2-2.7b``) always do, as in the reference, and the
-report's ``engine`` says which ran.  The metrics server,
-cluster routing and trace export are not ported yet.
+report's ``engine`` says which ran.  ``--kernel gather`` serves the
+paged engine through its dense working-cache pathway instead of the page
+table (the report's ``kernel`` says which).  The metrics server, cluster
+routing and trace export are not ported yet.
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ def serve(arch: str, *, n_requests: int = 8, slots: int = 4,
           engine: str = "paged", block_size: int = 8, chunk: int = 4,
           shared_prefix: int = 0, temperature: float = 0.0, top_k: int = 0,
           top_p: float = 1.0, sampling_seed: int = 0,
-          device: str = "cuda") -> dict:
+          kernel: str = "paged", device: str = "cuda") -> dict:
     dev = resolve_device(device)
     cfg = reduced(resolve_arch(arch))
     model = build(cfg)
@@ -47,7 +49,7 @@ def serve(arch: str, *, n_requests: int = 8, slots: int = 4,
     if engine == "paged":
         eng = PagedServeEngine(model, params, slots=slots, max_len=max_len,
                                block_size=block_size, chunk=chunk,
-                               tracer=tracer, device=dev)
+                               kernel=kernel, tracer=tracer, device=dev)
     else:
         eng = ServeEngine(model, params, slots=slots, max_len=max_len,
                           tracer=tracer, device=dev)
@@ -118,6 +120,9 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--top-p", type=float, default=1.0,
                     help="nucleus bound in (0, 1]")
     ap.add_argument("--sampling-seed", type=int, default=0)
+    ap.add_argument("--kernel", choices=["paged", "gather"], default="paged",
+                    help="paged engine's KV pathway: attend through the page "
+                         "table, or the dense working-cache fallback")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     args = ap.parse_args(argv)
     res = serve(args.arch, n_requests=args.requests, slots=args.slots,
@@ -126,7 +131,7 @@ def main(argv: list[str] | None = None) -> None:
                 chunk=args.chunk, shared_prefix=args.shared_prefix,
                 temperature=args.temperature, top_k=args.top_k,
                 top_p=args.top_p, sampling_seed=args.sampling_seed,
-                device=args.device)
+                kernel=args.kernel, device=args.device)
     print(json.dumps(res, indent=1))
 
 

@@ -15,6 +15,9 @@ Ports ``repro.models.attention`` at tp=1:
   and attended through each lane's page table (the paged engine's step);
   attention goes to ``kernels.ops.paged_attention``, the CUDA kernel on a
   card and its plain version on the CPU.
+* ``chunk_decode_attention`` — C query tokens per lane against a dense
+  per-slot cache (the paged engine's ``kernel="gather"`` pathway); plain
+  torch ops, as the reference's jnp.
 * ``decode_attention`` — one token against a dense per-slot cache (the
   contiguous ``ServeEngine``, the paged engine's oracle).
 
@@ -108,6 +111,73 @@ def full_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
             out = block(q, pos)
     y = out.reshape(b, s, h * hd) @ p["wo"]
     return (y, (k, v)) if return_kv else y
+
+
+def dense_write_index(pos: torch.Tensor, n_new: torch.Tensor, chunk: int,
+                      s_max: int) -> tuple[torch.Tensor, ...]:
+    """Where a chunk's fresh KV rows go in the dense per-slot cache:
+    ``(lane, col, row)``, the lane and chunk column of each row to write
+    and its cache row ``pos + col``.  A lane writes only its first
+    ``n_new`` rows, and none past ``s_max``: the rest are masked out here,
+    where the reference sends them past the cache with ``mode="drop"``.
+    Every layer of a step writes the same rows, so the decode step
+    computes this once (one host sync) for all layers."""
+    steps = torch.arange(chunk, device=pos.device)
+    idx = pos[:, None].long() + steps[None, :]                    # [B, C]
+    ok = (steps[None, :] < n_new[:, None]) & (idx < s_max)
+    lane, col = ok.nonzero(as_tuple=True)
+    return lane, col, idx[lane, col]
+
+
+def chunk_decode_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                           k_cache: torch.Tensor, v_cache: torch.Tensor,
+                           pos: torch.Tensor, n_new: torch.Tensor, *,
+                           write_index: tuple | None = None
+                           ) -> torch.Tensor:
+    """Multi-token decode against the dense cache (the gather pathway's
+    chunked prefill / decode mix).
+
+    x [B,C,D]; caches [B,Smax,KV,hd] (written in place); pos [B] each
+    lane's first write position; n_new [B] in [0, C] its real tokens.
+    Query i of a lane attends cache rows j <= pos + i, so a chunk is
+    causally exact against the rows already cached and against itself.
+    ``write_index`` is ``dense_write_index``'s result when the caller
+    already has it.  Returns y [B,C,D]; rows past ``n_new`` are garbage the
+    caller discards.
+    """
+    geom = head_geom(cfg)
+    hd, kv, g = geom.head_dim, geom.n_kv, geom.group
+    b, c, _ = x.shape
+    s_max = k_cache.shape[1]
+
+    q = (x @ p["wq"]).reshape(b, c, kv, g, hd)
+    k_new = (x @ p["wk"]).reshape(b, c, kv, hd)
+    v_new = (x @ p["wv"]).reshape(b, c, kv, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_scale"], q, cfg.norm_eps)
+        k_new = rmsnorm(p["k_scale"], k_new, cfg.norm_eps)
+    idx = pos[:, None] + torch.arange(c, device=x.device)[None, :]  # [B,C]
+    if cfg.rope_theta > 0:
+        q = rope(q.reshape(b, c, kv * g, hd), idx,
+                 cfg.rope_theta).reshape(b, c, kv, g, hd)
+        k_new = rope(k_new, idx, cfg.rope_theta)
+
+    lane, col, row = (write_index if write_index is not None else
+                      dense_write_index(pos, n_new, c, s_max))
+    k_cache[lane, row] = k_new[lane, col]
+    v_cache[lane, row] = v_new[lane, col]
+
+    scores = torch.einsum("bckgh,bskh->bkgcs", q.float(),
+                          k_cache.float()) * (hd ** -0.5)
+    valid = (torch.arange(s_max, device=x.device)[None, None, :]
+             <= idx[:, :, None])                                   # [B,C,S]
+    scores = torch.where(valid[:, None, None], scores,
+                         torch.full_like(scores, NEG_INF))
+    # fp32 softmax weights, one rounding after the P·V product
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgcs,bskh->bckgh", probs,
+                       v_cache.float()).to(x.dtype)
+    return out.reshape(b, c, kv * g * hd) @ p["wo"]
 
 
 def paged_write_index(page_table: torch.Tensor, pos: torch.Tensor,

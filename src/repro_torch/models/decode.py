@@ -5,10 +5,11 @@ fused token selection.
 Ports the dense, ssm and hybrid branches of ``repro.models.decode``.
 ``prefill`` and ``decode_step`` serve all three families (the hybrid's
 attention cache holds one layer per group, for the shared block); the
-paged chunk step and its page pool are dense only.  Layers run as a
-Python loop over the stacked ``[L, ...]`` weights (the reference's
-``lax.scan``); caches and pools are updated in place, so the steps return
-only logits.
+chunk steps (``decode_chunk`` over the dense per-slot cache, the gather
+pathway's; ``decode_paged_chunk`` over the page pool) are dense only.
+Layers run as a Python loop over the stacked ``[L, ...]`` weights (the
+reference's ``lax.scan``); caches and pools are updated in place, so the
+steps return only logits.
 
 Sampling keeps the reference's semantics, not its bits: a lane's noise is
 a pure function of ``(seed, rid, step)``, with no generator state, so a
@@ -28,7 +29,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import params as P
-from repro_torch.models.attention import (decode_attention, full_attention,
+from repro_torch.models.attention import (chunk_decode_attention,
+                                          decode_attention, dense_write_index,
+                                          full_attention,
                                           paged_chunk_decode_attention,
                                           paged_write_index)
 from repro_torch.models.layers import (embed_tokens, head_geom, logits_from,
@@ -38,7 +41,7 @@ from repro_torch.models.ssm import conv_channels, mamba_block, mamba_decode
 
 def _dense_only(cfg: ModelConfig, what: str) -> None:
     if cfg.family != "dense":
-        raise ValueError(f"{what}: the paged path serves the dense family "
+        raise ValueError(f"{what}: the chunk steps serve the dense family "
                          f"only, got {cfg.family!r}")
 
 
@@ -214,6 +217,36 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
                          f"hybrid families, got {fam!r}")
     x = rmsnorm(params["final_norm"], x, eps)
     return logits_from(params["embed"], cfg, x)[:, 0]
+
+
+@torch.no_grad()
+def decode_chunk(cfg: ModelConfig, params: dict, cache: dict,
+                 tokens: torch.Tensor, pos: torch.Tensor,
+                 n_new: torch.Tensor) -> torch.Tensor:
+    """C-token decode against the dense per-slot cache: the gather
+    pathway's single step.
+
+    tokens [B,C], pos [B] (first write position per lane), n_new [B] in
+    [0, C] (0 idle lane, 1 decode tick, >1 prefill chunk); the cache is
+    ``cache_specs``' ``{"self": {"k", "v"}}``, written in place.  Prefill
+    lanes consume C prompt tokens per call while decode lanes advance one
+    token in the same batched step.  Returns logits [B, Vpad] at each
+    lane's last real position."""
+    _dense_only(cfg, "decode_chunk")
+    b, c = tokens.shape
+    x = embed_tokens(params["embed"], tokens)
+    kc, vc = cache["self"]["k"], cache["self"]["v"]
+    where = dense_write_index(pos, n_new, c, kc.shape[2])
+    for i in range(cfg.n_layers):
+        p = _layer(params["layers"], i)
+        h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+        x = x + chunk_decode_attention(cfg, p["attn"], h, kc[i], vc[i], pos,
+                                       n_new, write_index=where)
+        x = x + swiglu(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps))
+    last = n_new.long().clamp(min=1) - 1
+    x_last = x[torch.arange(b, device=x.device), last][:, None, :]
+    x_last = rmsnorm(params["final_norm"], x_last, cfg.norm_eps)
+    return logits_from(params["embed"], cfg, x_last)[:, 0]
 
 
 @torch.no_grad()

@@ -93,6 +93,25 @@ class Model:
         return D.sample_from_logits(
             self.decode_step(params, cache, token, pos), lane)
 
+    # ---- serving: gather pathway (dense per-slot cache) ----
+    def decode_chunk(self, params: dict, cache: dict, tokens: torch.Tensor,
+                     pos: torch.Tensor, n_new: torch.Tensor) -> torch.Tensor:
+        return D.decode_chunk(self.cfg, params, cache, tokens, pos, n_new)
+
+    def decode_greedy_chunk(self, params: dict, cache: dict,
+                            tokens: torch.Tensor, pos: torch.Tensor,
+                            n_new: torch.Tensor) -> torch.Tensor:
+        """Chunked decode with argmax (the gather pathway, all-greedy)."""
+        return self.decode_chunk(params, cache, tokens, pos,
+                                 n_new).argmax(dim=-1)
+
+    def decode_sample_chunk(self, params: dict, cache: dict,
+                            tokens: torch.Tensor, pos: torch.Tensor,
+                            n_new: torch.Tensor, lane: dict) -> torch.Tensor:
+        """Chunked decode with fused sampling (the gather pathway)."""
+        return D.sample_from_logits(
+            self.decode_chunk(params, cache, tokens, pos, n_new), lane)
+
     # ---- serving: paged ----
     def decode_paged_chunk(self, params: dict, cache: dict,
                            tokens: torch.Tensor, pos: torch.Tensor,

@@ -14,8 +14,12 @@ parks its written KV pages on a host swap tier and readmission swaps them
 back in (recompute-on-readmit is the costed fallback).  KV lives in a
 page pool on the device and is written and attended through the per-slot
 page table (``decode_paged_chunk`` → ``kernels.ops.paged_attention``: the
-CUDA kernel on a card).  The reference's ``kernel="gather"`` fallback is
-not ported yet.
+CUDA kernel on a card).  ``kernel="gather"`` is the reference's dense
+fallback: KV lives in a per-slot working cache (``decode_chunk``, plain
+torch ops), registered prefix blocks are copied out to a host ``KVPool``
+and a prefix hit is gathered back into the new slot's rows at admission.
+``compare_engines`` holds the paged engine, on either pathway, to the
+contiguous oracle token for token (``core.verify.DualEnvHarness``).
 
 ``ServeEngine`` is the contiguous engine, one decode step per token over
 per-slot caches; it is the paged engine's oracle, and the engine of the
@@ -37,7 +41,7 @@ from __future__ import annotations
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -48,8 +52,9 @@ from repro_torch.models.model import Model
 from repro_torch.serve.api import (GREEDY, LaneState, RequestHandle,
                                    SamplingParams, run_requests)
 from repro_torch.serve.paging import (BlockAllocator, DevicePageView,
-                                      HostSwapPool, PrefixCache,
-                                      chain_hashes, pages_for)
+                                      HostSwapPool, KVPool, PrefixCache,
+                                      chain_hashes, host_dtype, pages_for,
+                                      to_device, to_host)
 from repro_torch.serve.scheduler import (DONE, PREEMPTED, RUNNING, WAITING,
                                          Plan, SchedEntry, Scheduler,
                                          SwapCostModel)
@@ -394,8 +399,11 @@ class _Slot:
     registered: int              # full feed blocks registered / matched
     next_input: int = -1         # decode-phase input token
     table: list[int] = field(default_factory=list)  # logical block -> page
-                                 # (shared then private, in feed order;
-                                 # block i's KV lives wholly in page table[i])
+                                 # (paged pathway: shared then private, in
+                                 # feed order; block i's KV lives wholly in
+                                 # page table[i]; empty on the gather one)
+    reg_cursor: int = 0          # next private page usable for registration
+                                 # (gather pathway)
 
 
 class PagedServeEngine:
@@ -403,11 +411,18 @@ class PagedServeEngine:
 
     Every step is one fixed-shape chunked call: prefill lanes feed up to
     ``chunk`` prompt tokens, decode lanes feed their last sampled token,
-    idle lanes feed nothing (n_new=0).  KV lives in the shared page pool
-    (``serve.paging.DevicePageView``) and the step writes and attends it
-    through the page table; prefix hits are pure metadata (the matched
-    pages appear in the new slot's table row, zero copies) and
-    registration publishes the page a block already lives in.
+    idle lanes feed nothing (n_new=0).
+
+    ``kernel`` picks the KV pathway.  ``"paged"`` (the default): KV lives
+    in the shared page pool (``serve.paging.DevicePageView``) and the step
+    writes and attends it through the page table; prefix hits are pure
+    metadata (the matched pages appear in the new slot's table row, zero
+    copies) and registration publishes the page a block already lives in.
+    ``"gather"``: KV lives in a dense per-slot working cache on the device
+    and the step is ``decode_chunk``; registration copies a block's rows
+    out to a private page of the host ``KVPool``, and admission gathers a
+    prefix hit's pages back into the slot's rows.  Both pathways give the
+    same streams.
 
     Deterministic by construction: the scheduler runs on the engine's
     synthetic tick clock, so a trace (prompts, priorities, arrivals)
@@ -418,7 +433,6 @@ class PagedServeEngine:
     ``admit_every`` batches scheduler invocations to every N-th tick
     (N=1, the default, schedules every tick); values > 1 model a
     misconfigured admission interval (same streams, inflated TTFT).
-    ``kernel`` keeps the reference's argument: only ``"paged"`` exists.
     """
 
     def __init__(self, model: Model, params: Any, *, slots: int = 4,
@@ -438,11 +452,10 @@ class PagedServeEngine:
                 f"ServeEngine")
         if admit_every < 1:
             raise ValueError(f"admit_every must be >= 1, got {admit_every}")
-        if kernel != "paged":
+        if kernel not in ("paged", "gather"):
             raise ValueError(
-                f"kernel must be 'paged' (attend through the page table); "
-                f"the reference's {kernel!r} pathway is not ported, got "
-                f"{kernel!r}")
+                f"kernel must be 'paged' (attend through the page table) "
+                f"or 'gather' (dense working-cache fallback), got {kernel!r}")
         self.device = resolve_device(device)
         _check_params_on(params, self.device)
         self.model = model
@@ -465,16 +478,31 @@ class PagedServeEngine:
         self.host = HostSwapPool(host_blocks, block_size)
         self.swap_cost = swap_cost or SwapCostModel()
         self._swap_records: dict[int, _SwapRecord] = {}   # entry.seq -> rec
-        # KV storage IS the device page pool; its geometry comes from the
-        # declarative spec the paged step is written against
-        spec = model.paged_cache_specs(num_blocks, block_size)["paged"]["k"]
-        layers, _, _, n_kv, hd = spec.shape
-        self.view = DevicePageView(
-            num_blocks, block_size, layers, n_kv, hd, spec.dtype,
-            slots=slots, max_pages=pages_for(max_len, block_size),
-            device=self.device)
-        self.cache = self.view.cache()
-        if swap and use_prefix_cache:
+        if kernel == "paged":
+            # KV storage IS the device page pool; its geometry comes from
+            # the declarative spec the paged step is written against
+            spec = model.paged_cache_specs(num_blocks,
+                                           block_size)["paged"]["k"]
+            layers, _, _, n_kv, hd = spec.shape
+            self.pool = None
+            self.view = DevicePageView(
+                num_blocks, block_size, layers, n_kv, hd, spec.dtype,
+                slots=slots, max_pages=pages_for(max_len, block_size),
+                device=self.device)
+            self.cache = self.view.cache()
+        else:
+            # a dense working cache per slot, and registered prefix pages
+            # in host memory
+            spec = model.cache_specs(slots, max_len)["self"]["k"]
+            layers, _, _, n_kv, hd = spec.shape
+            self.pool = KVPool(num_blocks, block_size, layers, n_kv, hd,
+                               host_dtype(spec.dtype))
+            self.view = None
+            self.cache = model.zero_cache(slots, max_len, self.device)
+        if swap and use_prefix_cache and kernel == "paged":
+            # cold-prefix spill rides the host tier on the paged pathway
+            # only: gather-mode registered pages already live in the host
+            # KVPool, spilling them would copy host to host
             self.prefix.attach_spill(
                 spill_out=self._spill_page, page_in=self._page_in,
                 drop=self.host.decref, capacity=host_blocks)
@@ -631,11 +659,21 @@ class PagedServeEngine:
             return False
         private = [self.alloc.alloc() for _ in range(need)]
         slot = self._free_slots()[0]
-        # zero-copy prefix reuse: the matched pages (and the fresh private
-        # ones) become this slot's page-table row
-        table = shared + private
-        self.view.bind_slot(slot, table)
-        self.pstats.cached_tokens += matched_len
+        if self.kernel == "paged":
+            # zero-copy prefix reuse: the matched pages (and the fresh
+            # private ones) become this slot's page-table row
+            table = shared + private
+            self.view.bind_slot(slot, table)
+            self.pstats.cached_tokens += matched_len
+        else:
+            table = []
+            if matched_len:         # prefix hit: pages -> slot rows, no math
+                for cache, rows in zip(
+                        (self.cache["self"]["k"], self.cache["self"]["v"]),
+                        self.pool.read(shared)):
+                    cache[:, slot, :matched_len] = to_device(
+                        rows[:, :matched_len], cache.dtype, self.device)
+                self.pstats.cached_tokens += matched_len
         self.active[slot] = _Slot(
             entry=entry, req=req, feed=feed,
             hashes=chain_hashes(feed, bs),
@@ -679,10 +717,23 @@ class PagedServeEngine:
             return False
         private = [self.alloc.alloc() for _ in range(need)]
         slot = self._free_slots()[0]
-        for bid, hid in zip(private, rec.host_ids):
-            self.view.write_page(bid, *self.host.get(hid))
-        table = list(private)
-        self.view.bind_slot(slot, table)
+        if self.kernel == "paged":
+            for bid, hid in zip(private, rec.host_ids):
+                self.view.write_page(bid, *self.host.get(hid))
+            table = list(private)
+            self.view.bind_slot(slot, table)
+        else:
+            # the parked pages back into the slot's rows; rows past them
+            # keep the last occupant's values, never read before the
+            # decode loop rewrites them (the reference zeroes them)
+            table = []
+            rows = min(len(rec.host_ids) * bs, self.max_len)
+            for i, cache in enumerate((self.cache["self"]["k"],
+                                       self.cache["self"]["v"])):
+                parked = np.concatenate([self.host.get(h)[i]
+                                         for h in rec.host_ids], axis=1)
+                cache[:, slot, :rows] = to_device(parked[:, :rows],
+                                                  cache.dtype, self.device)
         self.active[slot] = _Slot(
             entry=entry, req=req, feed=feed,
             hashes=chain_hashes(feed, bs),
@@ -703,21 +754,32 @@ class PagedServeEngine:
                         pages_in_use=self.alloc.in_use)
         return True
 
-    def _register_blocks(self, st: _Slot) -> None:
-        """Publish newly completed full prompt blocks to the prefix cache:
-        the block's KV already lives in the page its table entry names, so
-        registration is pure metadata (first writer wins; the loser keeps
-        its private page)."""
+    def _register_blocks(self, slot: int, st: _Slot) -> None:
+        """Publish newly completed full prompt blocks to the prefix cache.
+        Paged pathway: the block's KV already lives in the page its table
+        entry names, so registration is pure metadata (first writer wins;
+        the loser keeps its private page).  Gather pathway: copy the
+        slot's rows out to a private page of the host pool."""
         if not self.prefix_enabled:
             return
         bs = self.alloc.block_size
         while (st.registered < len(st.hashes)
                and (st.registered + 1) * bs <= st.consumed):
             h = st.hashes[st.registered]
-            if not self.prefix.contains(h):
-                # entries past the matched blocks are this slot's private
-                # pages: fully written, never written again
-                self.prefix.insert(h, st.table[st.registered])
+            if self.kernel == "paged":
+                if not self.prefix.contains(h):
+                    # entries past the matched blocks are this slot's
+                    # private pages: fully written, never written again
+                    self.prefix.insert(h, st.table[st.registered])
+            elif (not self.prefix.contains(h)
+                    and st.reg_cursor < len(st.private)):
+                bid = st.private[st.reg_cursor]
+                st.reg_cursor += 1
+                a, b = st.registered * bs, (st.registered + 1) * bs
+                self.pool.write(
+                    bid, to_host(self.cache["self"]["k"][:, slot, a:b]),
+                    to_host(self.cache["self"]["v"][:, slot, a:b]))
+                self.prefix.insert(h, bid)
             st.registered += 1
 
     # ------------------------------------------------------ release paths
@@ -736,8 +798,22 @@ class PagedServeEngine:
         self._swap_records[st.entry.seq] = rec
         if not self.swap_enabled or st.consumed <= 0:
             return 0
-        n_pages = pages_for(st.consumed, self.alloc.block_size)
-        pages = [self.view.read_page(b) for b in st.table[:n_pages]]
+        bs = self.alloc.block_size
+        n_pages = pages_for(st.consumed, bs)
+        if self.kernel == "paged":
+            pages = [self.view.read_page(b) for b in st.table[:n_pages]]
+        else:
+            # the slot's written rows, zero-padded to whole pages
+            rows = min(n_pages * bs, self.max_len)
+            slabs = []
+            for cache in (self.cache["self"]["k"], self.cache["self"]["v"]):
+                slab = to_host(cache[:, slot, :rows])
+                slab = np.pad(slab, ((0, 0), (0, n_pages * bs - rows))
+                              + ((0, 0),) * (slab.ndim - 2))
+                slabs.append(slab.reshape(slab.shape[0], n_pages, bs,
+                                          *slab.shape[2:]))
+            pages = [(slabs[0][:, i], slabs[1][:, i])
+                     for i in range(n_pages)]
         ids: list[int] = []
         for k_rows, v_rows in pages:
             hid = self.host.put(k_rows, v_rows)
@@ -759,7 +835,8 @@ class PagedServeEngine:
         st = self.active.pop(entry.slot)
         self.lane.clear(entry.slot)
         self._swap_out(st, entry.slot)
-        self.view.clear_slot(entry.slot)
+        if self.view is not None:
+            self.view.clear_slot(entry.slot)
         self._release(st)
         self.trace.emit("preempt", rid=st.req.rid, slot=entry.slot,
                         tick=self.now, consumed=st.consumed,
@@ -770,7 +847,8 @@ class PagedServeEngine:
     def _finish(self, slot: int) -> Request:
         st = self.active.pop(slot)
         self.lane.clear(slot)
-        self.view.clear_slot(slot)
+        if self.view is not None:
+            self.view.clear_slot(slot)
         st.req.finished = True
         st.req.t_done = time.perf_counter()
         self._release(st)
@@ -793,7 +871,8 @@ class PagedServeEngine:
         if entry.state == RUNNING:
             st = self.active.pop(entry.slot)
             self.lane.clear(entry.slot)
-            self.view.clear_slot(entry.slot)
+            if self.view is not None:
+                self.view.clear_slot(entry.slot)
             phase = "prefill" if st.pending else "decode"
             released = len(st.shared) + len(st.private)
             self._release(st)
@@ -868,14 +947,20 @@ class PagedServeEngine:
                 n_new[slot] = 1
 
         a = self._args
-        args = (self.params, self.cache, a(toks), a(pos), a(n_new),
-                a(self.view.page_table))
-        if need_sample:
-            sampled = self.model.decode_paged_sample_chunk(
-                *args, a.lanes(self.lane))
+        args = [self.params, self.cache, a(toks), a(pos), a(n_new)]
+        if self.kernel == "paged":
+            args.append(a(self.view.page_table))
+            greedy = self.model.decode_paged_greedy_chunk
+            sample = self.model.decode_paged_sample_chunk
         else:
-            sampled = self.model.decode_paged_greedy_chunk(*args)
-        self.view.adopt(self.cache)
+            greedy = self.model.decode_greedy_chunk
+            sample = self.model.decode_sample_chunk
+        if need_sample:
+            sampled = sample(*args, a.lanes(self.lane))
+        else:
+            sampled = greedy(*args)
+        if self.view is not None:
+            self.view.adopt(self.cache)
         nxt = sampled.cpu().numpy()
         self.stats.decode_steps += 1
         self.stats.observe_occupancy(len(self.active))
@@ -898,7 +983,7 @@ class PagedServeEngine:
             if st.pending:
                 st.pending = st.pending[n:]
                 self.pstats.prefill_tokens += n
-                self._register_blocks(st)
+                self._register_blocks(slot, st)
                 if st.pending:
                     continue        # mid-prefill: this lane's sample unused
                 # prompt fully consumed this tick: the prefill→decode
@@ -984,3 +1069,63 @@ def token_matrix(done: list[Request], n_requests: int,
     for r in done:
         out[r.rid, :len(r.out)] = r.out
     return out
+
+
+def compare_engines(model: Model, params: Any,
+                    make_requests: Callable[[], list[Request]], *,
+                    slots: int = 2, max_len: int = 64, block_size: int = 8,
+                    chunk: int = 4, repeats: int = 1,
+                    sampling: SamplingParams | None = None,
+                    engine_kwargs: dict[str, dict] | None = None,
+                    cluster: dict | None = None,
+                    device: str | torch.device = "cuda"):
+    """The paged engine's correctness proof, in the paper's methodology:
+    the same workload under two environments (contiguous oracle vs paged)
+    must agree token for token.  With ``sampling`` given, both engines
+    decode the workload under those SamplingParams; counter-based keys
+    make sampled streams engine-independent, so the verdict is the same
+    bit-identity as greedy.
+
+    ``engine_kwargs`` pins per-engine construction explicitly:
+    ``{"contiguous": {...}, "paged": {...}}``, e.g. ``{"paged": {"kernel":
+    "gather"}}`` holds the oracle verdict over the dense-fallback pathway
+    and ``{"paged": {"kernel": "paged"}}`` over the page-table kernel.
+    Both engines run on ``device``.  The reference's ``cluster`` form
+    (single paged engine vs a ``ClusterEngine``) waits for the port's
+    cluster slice and raises ``NotImplementedError``.
+
+    Returns a ``core.verify.DualEnvReport`` whose verdicts CI gates on."""
+    from repro_torch.core.verify import DualEnvHarness
+
+    if cluster is not None:
+        raise NotImplementedError(
+            "compare_engines(cluster=...) needs ClusterEngine, which the "
+            "port does not have yet")
+    ek = engine_kwargs or {}
+    contig_kw = dict(ek.get("contiguous", {}))
+    paged_kw = dict(ek.get("paged", {}))
+
+    def requests() -> list[Request]:
+        reqs = make_requests()
+        if sampling is not None:
+            for r in reqs:
+                r.sampling = sampling
+        return reqs
+
+    probe = requests()
+    n, max_new = len(probe), max(r.max_new for r in probe)
+
+    def run_contiguous():
+        eng = ServeEngine(model, params, slots=slots, max_len=max_len,
+                          device=device, **contig_kw)
+        return token_matrix(eng.run(requests()), n, max_new)
+
+    def run_paged():
+        eng = PagedServeEngine(model, params, slots=slots, max_len=max_len,
+                               block_size=block_size, chunk=chunk,
+                               device=device, **paged_kw)
+        return token_matrix(eng.run(requests()), n, max_new)
+
+    harness = DualEnvHarness(repeats=repeats, warmup=0)
+    return harness.compare("contiguous", run_contiguous,
+                           "paged", run_paged, rtol=1e-9, atol=0.5)

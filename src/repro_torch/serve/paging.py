@@ -3,9 +3,9 @@
 The port's counterpart of ``repro.serve.paging``.  The host-side classes
 are copies of the reference's (pure Python): ``BlockAllocator``,
 ``PrefixCache``, ``HostSwapPool``, ``chain_hashes`` and ``pages_for``.
-``DevicePageView`` is rewritten on torch tensors.  The reference's
-``KVPool`` serves only the ``kernel="gather"`` pathway, which the port
-does not have yet.
+``DevicePageView`` is rewritten on torch tensors.  ``KVPool``, the
+``kernel="gather"`` pathway's host page store, is a copy too (bf16 pages
+held as their raw 16 bits, see ``to_host``).
 
 - ``BlockAllocator`` hands out fixed-size logical pages from a free list
   and refcounts them so pages can be *shared* between requests (and with
@@ -21,6 +21,9 @@ does not have yet.
   page tables, consumed directly by the paged-attention kernel — KV is
   written and attended through the table, prefix sharing is pure
   metadata, and no dense per-slot working cache exists.
+- ``KVPool`` (gather pathway only) holds registered prefix pages in host
+  memory; admission gathers a hit's pages into the slot's rows of the
+  dense working cache.
 - ``HostSwapPool`` is the host swap tier below the device pool:
   preempted requests swap their written pages out instead of discarding
   them (readmission swaps them back in, no re-prefill), and cold prefix
@@ -329,6 +332,61 @@ class PrefixCache:
 # ================================================================= storage
 
 
+class KVPool:
+    """Physical page storage for registered prefix KV (host memory).
+
+    One (k, v) row-block per page: ``(layers, block_size, kv, hd)``.
+    Written once at registration; gathered into a slot's dense working
+    cache at admission.  Host numpy keeps the pool off the device and the
+    decode step's shapes fixed.
+    """
+
+    def __init__(self, num_blocks: int, block_size: int, layers: int,
+                 n_kv: int, head_dim: int, dtype):
+        shape = (layers, num_blocks, block_size, n_kv, head_dim)
+        self.k = np.zeros(shape, dtype=dtype)
+        self.v = np.zeros(shape, dtype=dtype)
+        self.block_size = block_size
+
+    def write(self, bid: int, k_rows: np.ndarray, v_rows: np.ndarray) -> None:
+        """k_rows/v_rows: (layers, block_size, kv, hd)."""
+        self.k[:, bid] = k_rows
+        self.v[:, bid] = v_rows
+
+    def read(self, bids: Sequence[int]) -> tuple[np.ndarray, np.ndarray]:
+        """Gather pages -> (layers, len(bids)*block_size, kv, hd)."""
+        idx = np.asarray(list(bids), dtype=np.int64)
+        k = self.k[:, idx]  # (L, n, bs, kv, hd)
+        v = self.v[:, idx]
+        n = idx.shape[0] * self.block_size
+        return (k.reshape(k.shape[0], n, *k.shape[3:]),
+                v.reshape(v.shape[0], n, *v.shape[3:]))
+
+
+def host_dtype(dtype: torch.dtype) -> np.dtype:
+    """The numpy type a tensor of ``dtype`` travels to the host as: bf16 as
+    its raw 16 bits (numpy has no bfloat16), so a round trip is exact."""
+    if dtype == torch.bfloat16:
+        return np.dtype(np.int16)
+    return torch.empty((), dtype=dtype).numpy().dtype
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """A copy of ``t`` on the host as numpy, in ``host_dtype``."""
+    t = t.cpu()
+    return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def to_device(rows: np.ndarray, dtype: torch.dtype,
+              device: torch.device) -> torch.Tensor:
+    """``to_host``'s inverse: host rows as a ``dtype`` tensor on
+    ``device``."""
+    t = torch.from_numpy(np.ascontiguousarray(rows))
+    if dtype == torch.bfloat16:
+        t = t.view(torch.bfloat16)
+    return t.to(device)
+
+
 @dataclass
 class SwapStats:
     swap_out_pages: int = 0   # pages copied device -> host
@@ -483,24 +541,13 @@ class DevicePageView:
     # ---------------------------------------------------------- swap tier
     def read_page(self, bid: int) -> tuple[np.ndarray, np.ndarray]:
         """One page ``(layers, block_size, kv, hd)`` of K and V, on host."""
-        return self._host(self.k[:, bid]), self._host(self.v[:, bid])
+        return to_host(self.k[:, bid]), to_host(self.v[:, bid])
 
     def write_page(self, bid: int, k_rows: np.ndarray,
                    v_rows: np.ndarray) -> None:
         """Overwrite one page in place from a ``read_page`` copy."""
-        self.k[:, bid] = self._device(k_rows)
-        self.v[:, bid] = self._device(v_rows)
-
-    @staticmethod
-    def _host(t: torch.Tensor) -> np.ndarray:
-        t = t.cpu()
-        return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
-
-    def _device(self, rows: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(rows))
-        if self.k.dtype == torch.bfloat16:
-            t = t.view(torch.bfloat16)
-        return t.to(self.k.device)
+        self.k[:, bid] = to_device(k_rows, self.k.dtype, self.k.device)
+        self.v[:, bid] = to_device(v_rows, self.v.dtype, self.v.device)
 
 
 def pages_for(n_tokens: int, block_size: int) -> int:

@@ -231,9 +231,14 @@ def test_report_keys_match_reference(bridged):
 
 
 def test_only_the_paged_kernel_pathway_exists(port):
+    """The paged engine has the reference's two KV pathways, the page-table
+    kernel (the default) and the gather fallback, and refuses any other
+    (tests/test_torch_gather.py holds the gather one)."""
     model, params = port
-    with pytest.raises(ValueError, match="not ported"):
-        PagedServeEngine(model, params, kernel="gather", device="cpu")
+    assert PagedServeEngine(model, params, device="cpu",
+                            **GEOM).report()["kernel"] == "paged"
+    with pytest.raises(ValueError, match="kernel must be 'paged'"):
+        PagedServeEngine(model, params, kernel="flash", device="cpu")
 
 
 def test_engines_refuse_parameters_on_another_device(port):

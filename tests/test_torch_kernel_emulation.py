@@ -11,8 +11,9 @@ an unwritten slot shows.
 
 This holds each kernel's indexing, masking, online softmax and merge to
 its plain version before it ever runs on a GPU: the paged-attention kernel,
-the flash-attention kernel (output and log-sum-exp) and the SSD scan
-kernel (output and final state).  It says nothing of what ``nvcc``
+the flash-attention kernel (output and log-sum-exp), the SSD scan kernel
+(output and final state) and the HH soma kernel (its grid-stride loop and
+``_vtrap``'s limit).  It says nothing of what ``nvcc``
 accepts, of timing, or of the memory model (the stand-in is sequentially
 consistent).  Skips where no C++20 compiler is found.
 """
@@ -28,6 +29,7 @@ import torch
 from repro_torch.kernels.build import CSRC
 from repro_torch.kernels.flash_attention import (flash_attention_plain,
                                                  logsumexp_plain)
+from repro_torch.kernels.hh_neuron import hh_step_plain
 from repro_torch.kernels.paged_attention import paged_attention_plain
 from repro_torch.kernels.ssd_scan import ssd_scan_plain
 
@@ -77,7 +79,7 @@ struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
-thread_local dim3 blockIdx, threadIdx, blockDim;
+thread_local dim3 blockIdx, threadIdx, blockDim, gridDim;
 struct EmuWarp { std::barrier<> bar{32}; float vals[32]; };
 thread_local EmuWarp* emu_warp;
 thread_local int emu_lane;
@@ -113,6 +115,7 @@ void emu_launch(dim3 grid, int threads, size_t smem, K kernel, A... args) {
           blockIdx = dim3(bx, by, 0);
           threadIdx = dim3(t, 0, 0);
           blockDim = dim3(threads, 1, 1);
+          gridDim = grid;
           emu_warp = warps[t / 32].get();
           emu_lane = t % 32;
           emu_block = &block;
@@ -124,14 +127,15 @@ void emu_launch(dim3 grid, int threads, size_t smem, K kernel, A... args) {
 }
 """
 
-# the two CUDA-only forms in the source, and what they become
+# the CUDA-only forms in the source, what they become, and whether every
+# kernel has one (a kernel without shared memory or bf16 has neither)
 _REWRITES = (
-    (r"#include <cuda_bf16\.h>", '#include "cuda_standin.h"'),
-    (r"#include <cuda_runtime\.h>", ""),
+    (r"#include <cuda_runtime\.h>", '#include "cuda_standin.h"', True),
+    (r"#include <cuda_bf16\.h>", "", False),
     (r"extern __shared__ (\w+) (\w+)\[\];",
-     r"\1* \2 = reinterpret_cast<\1*>(emu_shared);"),
+     r"\1* \2 = reinterpret_cast<\1*>(emu_shared);", False),
     (r"(\w+)<<<([^,]+),\s*([^,]+),\s*([^,]+),\s*[^>]+>>>\(",
-     r"emu_launch(\2, \3, \4, \1, "),
+     r"emu_launch(\2, \3, \4, \1, ", True),
 )
 
 
@@ -142,9 +146,10 @@ def _build_emulated(name, out):
     if cxx is None:
         pytest.skip("no C++ compiler to build the emulated kernel")
     src = (CSRC / f"{name}.cu").read_text()
-    for pattern, repl in _REWRITES:
+    for pattern, repl, required in _REWRITES:
         src, n = re.subn(pattern, repl, src)
-        assert n == 1, f"expected one {pattern!r} in the kernel source"
+        assert n == 1 or (n == 0 and not required), (
+            f"expected one {pattern!r} in the kernel source, found {n}")
     (out / "cuda_standin.h").write_text(_CUDA_STANDIN)
     (out / "kernel.cpp").write_text(src)
     lib = out / "libkernel.so"
@@ -371,3 +376,67 @@ def test_emulated_ssd_kernel_refuses_what_it_does_not_take(emulated_ssd):
         rc = emulated_ssd(*[z.data_ptr()] * 7, 1, s, h, p, g, n, chunk, 0,
                           None)
         assert rc != 0, (s, h, p, g, n, chunk)
+
+
+# ---------------------------------------------------------------------- hh
+
+
+@pytest.fixture(scope="module")
+def emulated_hh(tmp_path_factory):
+    """The HH soma kernel source built for the CPU stand-in."""
+    fn = _build_emulated("hh_neuron", tmp_path_factory.mktemp(
+        "emulated_hh")).hh_step_launch
+    fn.argtypes = ([ctypes.c_void_p] * 11
+                   + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _hh_launch(fn, args, dt, max_blocks):
+    outs = [torch.full_like(args[0], float("nan")) for _ in range(4)]
+    rc = fn(*(t.data_ptr() for t in (*args, *outs)), args[0].numel(), dt,
+            max_blocks, None)
+    return rc, outs
+
+
+# (cells, max_blocks): one cell, a tail below one 256-thread block, N not
+# a multiple of the block over a full grid, and grids cut to 1 and 2
+# blocks so the grid-stride loop walks 3 and 4 times
+HH_CASES = [(1, 0), (37, 0), (700, 0), (700, 1), (1800, 2)]
+
+
+@pytest.mark.parametrize("case", HH_CASES, ids=lambda c: "x".join(map(str, c)))
+@pytest.mark.parametrize("dt", [0.0125, 0.025])
+def test_emulated_hh_kernel_matches_plain(emulated_hh, case, dt):
+    """Every cell written, each within the reference's 3e-5 of the plain
+    version, on tests/test_kernels.py's input distributions."""
+    cells, max_blocks = case
+    rng = np.random.default_rng(cells + max_blocks)
+    args = [torch.tensor(rng.uniform(lo, hi, cells), dtype=torch.float32)
+            for lo, hi in ((-90, 30), (0, 1), (0, 1), (0, 1), (0, 8),
+                           (-20, 20), (0, 10))]
+    rc, outs = _hh_launch(emulated_hh, args, dt, max_blocks)
+    assert rc == 0
+    for got, want in zip(outs, hh_step_plain(*args, dt=dt)):
+        torch.testing.assert_close(got, want, rtol=3e-5, atol=3e-5)
+
+
+def test_emulated_hh_kernel_at_the_vtrap_limits(emulated_hh):
+    """v exactly -40 and -55, where ``_vtrap``'s quotient is 0/0: the
+    kernel takes the limit, finite and equal to the plain version."""
+    rng = np.random.default_rng(4)
+    v = torch.tensor([-40.0, -55.0] * 150, dtype=torch.float32)
+    args = [v] + [torch.tensor(rng.uniform(lo, hi, 300), dtype=torch.float32)
+                  for lo, hi in ((0, 1), (0, 1), (0, 1), (0, 8), (-20, 20),
+                                 (0, 10))]
+    rc, outs = _hh_launch(emulated_hh, args, 0.025, 0)
+    assert rc == 0
+    for got, want in zip(outs, hh_step_plain(*args, dt=0.025)):
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got, want, rtol=3e-5, atol=3e-5)
+
+
+def test_emulated_hh_kernel_refuses_no_cells(emulated_hh):
+    z = torch.zeros(4)
+    assert emulated_hh(*[z.data_ptr()] * 11, 0, 0.025, 0, None) != 0
