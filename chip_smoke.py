@@ -14,11 +14,14 @@ non-zero without printing a result:
                   tolerance 2e-5, bf16 2e-2).
 3. flash_kernel — the flash-attention kernel against its plain version:
                   the ``tests/test_kernels.py`` sweep (S 128-512, f32 and
-                  bf16, causal and not), head dims 32-128, a tail S of 100;
-                  output (f32 2e-5, bf16 2e-2) and log-sum-exp (2e-5
-                  relative), and the gradients of its autograd function
-                  against autograd through the plain version (2e-5 / 2e-2
-                  of each gradient's largest entry).
+                  bf16, causal and not), head dims 32-128, a tail S of 100,
+                  head dims 20 and 36; output (f32 2e-5, bf16 2e-2) and
+                  log-sum-exp (2e-5 relative), and the gradients of its
+                  autograd function against autograd through the plain
+                  version (2e-5 / 2e-2 of each gradient's largest entry).
+                  Each case's design (``flash_design``: tensor cores for
+                  bf16 at D 32-128 in steps of 16, scalar otherwise) is
+                  printed, and both designs must be covered.
 4. reference    — the paged decode step through the kernel against the same
                   step on the CPU through the plain version, reduced
                   deepseek-7b in f32 (logits within 1e-3).
@@ -50,10 +53,11 @@ non-zero without printing a result:
                   port's ``DataPipeline``.  Finite losses, the last below
                   the first; the flash kernel launched twice per layer per
                   step (forward and remat recompute), counts zeroed just
-                  before.  One more step under ``torch.profiler`` shows
-                  where a step's time goes.  Then the same 4 steps from
-                  the same seed with the plain version on the card: each
-                  loss within 1e-3 relative of the kernel run's.
+                  before, through the tensor-core design.  One more step
+                  under ``torch.profiler`` shows where a step's time goes.
+                  Then the same 4 steps from the same seed with the plain
+                  version on the card: each loss within 1e-3 relative of
+                  the kernel run's.
 11. train_cli   — ``launch/train.py::train`` on the card at ``reduced()``
                   scale: a run cut at a checkpoint and resumed reproduces
                   the uninterrupted run's losses.
@@ -61,7 +65,9 @@ non-zero without printing a result:
                   ``scaled_dot_product_attention(is_causal=True)`` (a
                   yardstick the port never calls) at the training shape,
                   q, k, v [128, 2048, 128] bf16 causal, L2 flushed before
-                  each launch, beside the flops bound.
+                  each launch, beside the flops bound; the design it took,
+                  and its registers and spills from the ptxas report (no
+                  tensor-core instantiation may spill).
 13. ssd_kernel  — the SSD scan kernel against its plain version, y and the
                   final state: the ``tests/test_kernels.py`` sweep (S
                   64-256, chunks 16-64, G 1 and 2), the full-width calls of
@@ -127,6 +133,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -147,7 +154,7 @@ from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     FlashAttention, flash_attention_cuda, flash_attention_plain,
-    logsumexp_plain)
+    flash_design, logsumexp_plain)
 from repro_torch.kernels.hh_neuron import (hh_step_cuda,  # noqa: E402
                                            hh_step_plain)
 from repro_torch.launch.train import train as train_cli  # noqa: E402
@@ -632,6 +639,8 @@ def phase_parity_and_timing(eng, best, dev):
 FLASH_SWEEP = [(3, s, 64) for s in (128, 256, 512)]
 FLASH_HEAD_DIMS = [(2, 256, d) for d in (32, 64, 80, 96, 128)]
 FLASH_TAIL = [(4, 100, 128), (2, 100, 64)]
+# head dims that are not a multiple of 16: the scalar design in bf16 too
+FLASH_SCALAR = [(2, 100, 36), (2, 256, 20)]
 FLASH_GRAD_CASES = [(4, 256, 64), (2, 512, 128), (2, 100, 96)]
 
 
@@ -649,10 +658,15 @@ def max_rel_to_max(got, want) -> float:
 
 def phase_flash_kernel(dev) -> dict:
     n_cases, worst, lse_worst, grad_worst = 0, {}, 0.0, {}
+    designs = {}
     for dtype in (torch.float32, torch.bfloat16):
         tol, err = TOL[dtype], 0.0
+        name = str(dtype).replace("torch.", "")
         for causal in (True, False):
-            for bh, s, d in FLASH_SWEEP + FLASH_HEAD_DIMS + FLASH_TAIL:
+            for bh, s, d in (FLASH_SWEEP + FLASH_HEAD_DIMS + FLASH_TAIL
+                             + FLASH_SCALAR):
+                designs[f"{bh}x{s}x{d} {name} causal={causal}"] = (
+                    flash_design(dtype, d))
                 q, k, v = flash_case(bh, s, d, dtype, n_cases, dev)
                 out, lse = flash_attention_cuda(q, k, v, causal=causal)
                 want = flash_attention_plain(q, k, v, causal=causal).float()
@@ -686,15 +700,17 @@ def phase_flash_kernel(dev) -> dict:
                 check(e <= tol, f"flash gradients != plain autograd: "
                                 f"{(bh, s, d)} {dtype}: {e}")
             n_cases += 1
-        name = str(dtype).replace("torch.", "")
         worst[name], grad_worst[name] = err, g_err
+    check(set(designs.values()) == {"mma", "scalar"},
+          f"the sweep does not cover both designs: {designs}")
     emit({"phase": "flash_kernel", "cases": n_cases, "max_abs_err": worst,
           "lse_max_rel_err": lse_worst,
           "grad_max_err_rel_to_max": grad_worst,
           "tolerance": {"float32": TOL[torch.float32],
                         "bfloat16": TOL[torch.bfloat16], "lse": 2e-5},
           "head_dims": sorted({d for _, _, d in FLASH_SWEEP + FLASH_HEAD_DIMS
-                               + FLASH_TAIL})})
+                               + FLASH_TAIL + FLASH_SCALAR}),
+          "designs": designs})
     return worst
 
 
@@ -868,6 +884,8 @@ def phase_train(dev) -> tuple[dict, float]:
           f"expected 2 x layers x steps = {expected} (forward and remat "
           f"recompute)")
     check(launches["paged_attention"] == 0, "paged attention ran in training")
+    design = flash_design(getattr(torch, cfg.dtype), cfg.resolved_head_dim)
+    check(design == "mma", f"the training call took the {design} design")
 
     steady_ms = statistics.median(step_s[1:]) * 1e3
     state, device_ms, by_kind, top = profiled_step(
@@ -893,6 +911,7 @@ def phase_train(dev) -> tuple[dict, float]:
           "steady_ms_per_step": steady_ms,
           "tokens_per_s": tokens / steady_ms * 1e3,
           "peak_mem_gb": peak_gb, "launches": launches,
+          "flash_design": design,
           "profile": {"device_ms_per_step": device_ms,
                       "device_busy_share": device_ms / steady_ms,
                       "flash_kernel_ms_per_step": flash_ms,
@@ -922,11 +941,38 @@ def phase_train_cli() -> None:
           "trace": full["audit"]["trace"]})
 
 
+def ptxas_report(name: str) -> dict[str, dict[str, int]]:
+    """Registers and spill bytes of each kernel entry in a library's
+    build log (``-Xptxas=-v``), by mangled entry name."""
+    log = kbuild.library_path(name).with_suffix(".log").read_text()
+    entries, cur = {}, None
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            cur = entries.setdefault(m.group(1), {})
+        elif cur is None:
+            continue
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", line):
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        elif m := re.search(r"Used (\d+) registers", line):
+            cur["registers"] = int(m.group(1))
+    return entries
+
+
 def phase_flash_timing(dev) -> tuple[float, dict]:
     """The kernel at the training call's shape: B·H = 4 x 32, S 2048,
     head dim 128, bf16, causal."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
     bh, s, d = TRAIN_BATCH * ALL_ARCHS[ARCH].n_heads, TRAIN_SEQ, 128
+    design = flash_design(torch.bfloat16, d)
+    check(design == "mma", f"the training shape takes the {design} design")
+    mma = {e: r for e, r in ptxas_report("flash_attention").items()
+           if "flash_attention_mma_kernel" in e}
+    check(bool(mma) and all(r.get("spill_stores", 1) == 0
+                            and r.get("spill_loads", 1) == 0
+                            for r in mma.values()),
+          f"a tensor-core flash instantiation spills: {mma}")
+    ptxas = next(r for e, r in mma.items() if f"ILi{d}E" in e)
     q, k, v = flash_case(bh, s, d, torch.bfloat16, SEED, dev)
     out, _ = flash_attention_cuda(q, k, v, causal=True)
     want = flash_attention_plain(q, k, v, causal=True)
@@ -962,7 +1008,14 @@ def phase_flash_timing(dev) -> tuple[float, dict]:
               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
               "flops": flops, "bytes": bytes_,
               "achieved_tflops": flops / t_kernel / 1e9,
-              "bound_share": bound / t_kernel, "gpu": nvidia_smi()}
+              "bound_share": bound / t_kernel, "design": design,
+              "registers": ptxas["registers"],
+              "spill_stores": ptxas["spill_stores"],
+              "spill_loads": ptxas["spill_loads"],
+              "mma_registers_by_head_dim": {
+                  int(re.search(r"ILi(\d+)E", e).group(1)): r["registers"]
+                  for e, r in mma.items()},
+              "gpu": nvidia_smi()}
     emit(timing)
     return err, timing
 

@@ -10,6 +10,12 @@ log-sum-exp.  ``flash_attention_plain`` mirrors the reference's
 ``ref.flash_attention_ref``: fp32 scores, fp32 softmax, P kept in fp32, the
 output rounded once to q's dtype.
 
+The kernel has two designs, picked by the arguments before the launch
+(``flash_design``): bf16 with D a multiple of 16 from 32, every arch's
+head dim, runs on the tensor cores (``"mma"``); f32 and other head dims
+run as fp32 FMAs on the CUDA cores (``"scalar"``).  Nothing is retried on
+the other design.
+
 The TPU kernel has no backward: the reference trains through its jnp
 attention, whose gradient XLA derives.  ``FlashAttention`` (the
 ``torch.autograd.Function`` the model calls on a card) therefore pairs the
@@ -97,6 +103,14 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
         dq[:, i0:i1] = torch.bmm(ds, kc) * scale
         dk[:, :n_k] += torch.bmm(ds.transpose(1, 2), qc) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_design(dtype: torch.dtype, d: int) -> str:
+    """The design the kernel takes for q's dtype and head dim: ``"mma"``
+    (tensor cores: bf16, D a multiple of 16 from 32) or ``"scalar"``.
+    Mirrors ``flash_attention_design`` in ``csrc/flash_attention.cu``."""
+    mma = dtype == torch.bfloat16 and d % 16 == 0 and d >= 32
+    return "mma" if mma else "scalar"
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:

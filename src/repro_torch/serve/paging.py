@@ -372,8 +372,9 @@ def host_dtype(dtype: torch.dtype) -> np.dtype:
 
 
 def to_host(t: torch.Tensor) -> np.ndarray:
-    """A copy of ``t`` on the host as numpy, in ``host_dtype``."""
-    t = t.cpu()
+    """A copy of ``t`` on the host as numpy, in ``host_dtype``: a fresh
+    buffer on every device, so later writes to ``t`` leave it unchanged."""
+    t = t.detach().to("cpu", copy=True)
     return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
 
 

@@ -12,8 +12,12 @@ kernel against its plain version.
   version, fed the plain version's log-sum-exp: chunked and not, a tail S,
   f32 at 2e-5 and bf16 at 2e-2, each relative to the gradient's largest
   entry.
+* ``flash_design``: bf16 at every arch's head dim takes the tensor-core
+  design, f32 and other head dims the scalar one.
 * The CUDA kernel against its plain version on the card (``cuda`` marker;
-  skips without a GPU) and the wrapper's argument checks, which run here.
+  skips without a GPU), both designs; a structured single tile whose
+  answer is a permutation, so a misread fragment layout shows as a wrong
+  key or column; and the wrapper's argument checks, which run here.
 """
 import functools
 
@@ -21,11 +25,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import ALL_ARCHS, reduced
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (FlashAttention,
                                                  flash_attention_backward,
                                                  flash_attention_cuda,
                                                  flash_attention_plain,
+                                                 flash_design,
                                                  logsumexp_plain)
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -135,6 +141,20 @@ def test_ops_dispatch_takes_the_plain_version_on_the_cpu():
         ops.flash_attention(*[t.to("meta") for t in args])
 
 
+def test_flash_design_takes_the_tensor_cores_at_every_arch_head_dim():
+    """bf16 at the head dim of every arch, full width and ``reduced()``,
+    runs on the tensor cores; f32, and bf16 at head dims that are not a
+    multiple of 16 or are 16, take the scalar design."""
+    dims = {c.resolved_head_dim for cfg in ALL_ARCHS.values()
+            for c in (cfg, reduced(cfg)) if c.n_heads}
+    assert dims == {32, 64, 80, 96, 128}
+    for d in dims:
+        assert flash_design(torch.bfloat16, d) == "mma"
+        assert flash_design(torch.float32, d) == "scalar"
+    for d in (4, 16, 20, 36, 100, 124):
+        assert flash_design(torch.bfloat16, d) == "scalar"
+
+
 _BAD_ARGS = {
     "cpu": (None, None, "CUDA device"),
     "dtype": (0, lambda t: t.to(torch.float16), "dtype"),
@@ -177,9 +197,11 @@ def cuda():
     return torch.device("cuda", torch.cuda.current_device())
 
 
-# (bh, s, d): the sweep's shapes, the head dims of the dense archs, a tail S
+# (bh, s, d): the sweep's shapes, the head dims of the dense archs, a tail
+# S, and a head dim that takes the scalar design in bf16 too
 CARD_CASES = ([(3, s, 64) for s, _, _ in SWEEP]
-              + [(2, 256, d) for d in (32, 80, 96, 128)] + [(4, 100, 128)])
+              + [(2, 256, d) for d in (32, 80, 96, 128)] + [(4, 100, 128),
+                                                           (2, 100, 36)])
 
 
 @pytest.mark.cuda
@@ -217,3 +239,33 @@ def test_cuda_autograd_function_matches_plain_gradients(cuda, dtype):
         grads.append([t.grad.float().cpu() for t in (q, k, v)])
     for got, want in zip(*grads):
         _close(got, want, TOL[dtype], rel_to_max=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_mma_fragments_on_a_structured_tile(cuda, d):
+    """One 64-key tile (bh 1, S 64, non-causal, bf16: the tensor-core
+    design) whose answer is a permutation.  Key j points along d-column
+    sigma[j] and carries the one-hot of column tau[j] as its value; query
+    i points along sigma[pi[i]], so its scaled scores are 0 except 256 /
+    sqrt(d) (22.6 or 32) on key pi[i].  The output row is then the one-hot
+    of tau[pi[i]] to within 1e-6: a misread Q, K or V fragment puts the
+    peak on another key or the one in another column, not a rounding
+    error."""
+    s = 64
+    rng = np.random.default_rng(d)
+    pi, sigma, tau = (rng.permutation(s), rng.permutation(d)[:s],
+                      rng.permutation(d)[:s])
+    q, k, v = (torch.zeros((1, s, d)) for _ in range(3))
+    q[0, np.arange(s), sigma[pi]] = 16.0
+    k[0, np.arange(s), sigma] = 16.0
+    v[0, np.arange(s), tau] = 1.0
+    q, k, v = (t.to(torch.bfloat16).to(cuda) for t in (q, k, v))
+    out, lse = flash_attention_cuda(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    want = torch.zeros((s, d))
+    want[np.arange(s), tau[pi]] = 1.0
+    assert out.float().cpu()[0].argmax(dim=-1).tolist() == tau[pi].tolist()
+    _close(out.float().cpu()[0], want, 1e-6)
+    _close(lse.cpu(), logsumexp_plain(q, k, causal=False).cpu(), 2e-5)
+    _close(lse.cpu(), np.full((1, s), 256.0 / d ** 0.5, np.float32), 2e-5)

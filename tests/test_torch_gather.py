@@ -173,6 +173,21 @@ def test_gather_pool_holds_bf16_rows_exactly(port):
     assert torch.equal(kc[:, 1, :8], kc[:, 0, :8])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_to_host_returns_a_copy_on_the_cpu(dtype):
+    """``to_host`` of a CPU tensor (a whole cache and a strided slice of
+    it) shares no memory with it: writing the source after the call
+    leaves the returned array as it was."""
+    from repro_torch.serve.paging import to_device, to_host
+    cache = torch.randn(2, 3, 8, 4).to(dtype)
+    for src in (cache, cache[:, 1, 2:6]):
+        want = src.clone()
+        got = to_host(src)
+        src.fill_(7.0)
+        assert torch.equal(to_device(got, dtype, src.device), want)
+
+
 # -------------------------------------------------------- decode_chunk
 
 
