@@ -74,7 +74,11 @@ non-zero without printing a result:
                   mamba2 and zamba2 (H 80, P 64, N 128 and 64, chunk 256,
                   S 2048), a G = 2 and an S = chunk case, f32 (2e-3) and
                   bf16 (one bf16 step); ``SsdScan``'s gradients against
-                  autograd through the plain version.
+                  autograd through the plain version.  Each case's design
+                  (``ssd_design``: chunk-parallel on the tensor cores for
+                  bf16 at P, N multiples of 16 and chunks of 64-256,
+                  scalar otherwise) is printed, and both designs must be
+                  covered.
 14. ssm_serve, hybrid_serve — mamba2-2.7b and zamba2-2.7b at full width
                   and depth (seeded bf16 weights) through the contiguous
                   ``ServeEngine``: 4 requests of 32-64 prompt tokens, 16
@@ -92,11 +96,22 @@ non-zero without printing a result:
 16. ssm_train   — mamba2-2.7b at full width and full depth (2.83 B
                   parameters), seq 2048, batch 4, remat full, the first 4
                   steps of the default schedule: the SSD kernel launched
-                  twice per layer per step (counts zeroed just before), one
-                  more step under ``torch.profiler``.
+                  twice per layer per step (counts zeroed just before),
+                  through its tensor-core design, one more step under
+                  ``torch.profiler`` with the device ms of the SSD
+                  forward's kernels and of the ``ssd_scan_backward`` and
+                  ``adamw_update`` spans.  Then the same 4 steps from the
+                  same seed with the plain versions on the card: each loss
+                  within 1e-3 relative of the kernel run's.
 17. ssd_timing  — SSD kernel and plain version at mamba2's training call
                   (x [4, 2048, 80, 64] bf16, chunk 256) and prefill call
-                  (x [1, 512, 80, 64]), L2 flushed, beside the bytes bound.
+                  (x [1, 512, 80, 64]), L2 flushed, beside the bytes bound;
+                  the design each took, its workspace bytes and heads a
+                  chunk-scan block, each pass's device ms from
+                  ``torch.profiler`` kernel names, the share of y values
+                  that differ from the plain version's, and each pass's
+                  registers and spills from the ptxas report (no pass an
+                  arch's call takes may spill).
 18. hh_kernel   — the HH soma kernel against its plain version: the
                   ``tests/test_kernels.py`` sweep (n 7-4096, dt 0.0125 and
                   0.025, its input distributions) plus the ring's 131,072
@@ -131,6 +146,7 @@ Then the ``kernels`` summary line, the card's name and power limit as
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import json
 import re
@@ -160,8 +176,9 @@ from repro_torch.kernels.hh_neuron import (hh_step_cuda,  # noqa: E402
 from repro_torch.launch.train import train as train_cli  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention_cuda, paged_attention_plain)
-from repro_torch.kernels.ssd_scan import (SsdScan, ssd_scan_backward,  # noqa: E402
-                                          ssd_scan_cuda, ssd_scan_plain)
+from repro_torch.kernels.ssd_scan import (  # noqa: E402
+    SsdScan, ssd_design, ssd_scan_backward, ssd_scan_cuda, ssd_scan_plain,
+    ssd_workspace_elements)
 from repro_torch.models import build  # noqa: E402
 from repro_torch.models import params as P  # noqa: E402
 from repro_torch.models.decode import decode_paged_chunk  # noqa: E402
@@ -778,10 +795,22 @@ def device_ms_by_kernel(prof) -> dict[str, float]:
     by_kernel = {}
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", 0.0)
-        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+        # a record_function span shows on the device too: not a kernel
+        if (us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(ev, "is_user_annotation", False)):
             by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + us / 1e3
     check(sum(by_kernel.values()) > 0, "the profiler saw no device time")
     return by_kernel
+
+
+def span_device_ms(prof, names) -> dict[str, float]:
+    """Device ms of the kernels launched inside each named
+    ``record_function`` span, from its host-side ranges, summed."""
+    out = {name: 0.0 for name in names}
+    for ev in prof.events():
+        if ev.name in out and ev.device_type == torch.autograd.DeviceType.CPU:
+            out[ev.name] += ev.device_time_total / 1e3
+    return out
 
 
 def kernel_kind(name: str) -> str:
@@ -835,9 +864,10 @@ def run_steps(step_fn, state, host_batches, dev):
     return state, losses, step_s
 
 
-def profiled_step(step_fn, state, host_batch, dev):
+def profiled_step(step_fn, state, host_batch, dev, spans=()):
     """One more step under ``torch.profiler``: (state, device ms, device
-    ms by kernel kind, the top kernels)."""
+    ms by kernel kind, the top kernels, device ms under each of
+    ``spans``)."""
     from torch.profiler import ProfilerActivity, profile
     batch = {k: torch.tensor(a, device=dev) for k, a in host_batch.items()}
     torch.cuda.synchronize()
@@ -851,7 +881,7 @@ def profiled_step(step_fn, state, host_batch, dev):
         by_kind[kernel_kind(name)] = by_kind.get(kernel_kind(name), 0.0) + ms
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
     return (state, sum(by_kernel.values()), by_kind,
-            {k[:70]: v for k, v in top})
+            {k[:70]: v for k, v in top}, span_device_ms(prof, spans))
 
 
 def phase_train(dev) -> tuple[dict, float]:
@@ -888,8 +918,8 @@ def phase_train(dev) -> tuple[dict, float]:
     check(design == "mma", f"the training call took the {design} design")
 
     steady_ms = statistics.median(step_s[1:]) * 1e3
-    state, device_ms, by_kind, top = profiled_step(
-        step_fn, state, batches[TRAIN_STEPS], dev)
+    state, device_ms, by_kind, top, spans = profiled_step(
+        step_fn, state, batches[TRAIN_STEPS], dev, ("adamw_update",))
     flash_ms = by_kind.get("flash_attention", 0.0)
     # the same steps from the same seed with the plain version on the
     # card: the kernel's training trajectory must track it
@@ -916,6 +946,7 @@ def phase_train(dev) -> tuple[dict, float]:
                       "device_busy_share": device_ms / steady_ms,
                       "flash_kernel_ms_per_step": flash_ms,
                       "flash_share_of_device": flash_ms / device_ms,
+                      "span_ms": spans,
                       "ms_by_kind": by_kind, "top_kernels_ms": top}})
     return launches, steady_ms
 
@@ -1068,10 +1099,13 @@ def ssd_close(y, y_p, fin, fin_p, dtype) -> tuple[bool, float]:
 
 
 def phase_ssd_kernel(dev) -> dict:
-    n_cases, worst, grad_worst = 0, {}, {}
+    n_cases, worst, grad_worst, designs = 0, {}, {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         err = 0.0
+        name = str(dtype).replace("torch.", "")
         for b, s, h, p, g, n, chunk in SSD_SWEEP + SSD_FULL:
+            designs[f"{b}x{s}x{h}x{p}x{g}x{n}x{chunk} {name}"] = ssd_design(
+                dtype, p, n, chunk)
             args = ssd_case(b, s, h, p, g, n, dtype, n_cases, dev)
             y, fin = ssd_scan_cuda(*args, chunk)
             y_p, fin_p = ssd_scan_plain(*args, chunk)
@@ -1083,6 +1117,8 @@ def phase_ssd_kernel(dev) -> dict:
             n_cases += 1
         g_err = 0.0
         for b, s, h, p, g, n, chunk in SSD_GRAD_CASES:
+            designs[f"{b}x{s}x{h}x{p}x{g}x{n}x{chunk} {name} grad"] = (
+                ssd_design(dtype, p, n, chunk))
             gen = torch.Generator(device=dev).manual_seed(1000 + n_cases)
             d_y = torch.randn((b, s, h, p), generator=gen, device=dev).to(dtype)
             d_fin = torch.randn((b, h, p, n), generator=gen, device=dev)
@@ -1099,14 +1135,21 @@ def phase_ssd_kernel(dev) -> dict:
                 check(e <= tol, f"SsdScan gradients != plain autograd: "
                                 f"{(b, s, h, p, g, n, chunk)} {dtype}: {e}")
             n_cases += 1
-        name = str(dtype).replace("torch.", "")
         worst[name], grad_worst[name] = err, g_err
+    check(set(designs.values()) == {"mma", "scalar"},
+          f"the sweep does not cover both designs: {designs}")
+    check(all(designs[f"{c} bfloat16"] == "mma" for c in (
+        "x".join(map(str, case)) for case in SSD_FULL[:4])),
+          f"a full-width bf16 call took the scalar design: {designs}")
     emit({"phase": "ssd_kernel", "cases": n_cases, "max_abs_err": worst,
           "grad_max_err_rel_to_max": grad_worst,
           "tolerance": {"float32": SSD_TOL, "bfloat16": "2^-7 rel + 1e-3",
                         "final_state": SSD_TOL,
                         "grad": {"float32": 1e-4, "bfloat16": GRAD_TOL}},
-          "full_width": SSD_FULL})
+          "full_width": SSD_FULL,
+          "cases_by_design": {d: sum(v == d for v in designs.values())
+                              for d in ("mma", "scalar")},
+          "designs": designs})
     return worst
 
 
@@ -1343,7 +1386,8 @@ def phase_ssm_train(dev) -> dict:
     AdamW state 45 GB): seq 2048, batch 4, remat full, the first 4 steps
     of the default schedule on the port's ``DataPipeline``; launch counts
     zeroed just before and read just after; one more step under
-    ``torch.profiler``."""
+    ``torch.profiler``; then the same steps through the plain versions,
+    each loss within ``TRAJ_TOL`` of the kernel run's."""
     cfg = ALL_ARCHS[SSM_ARCH]
     _, step_fn, batches, fresh = train_setup(
         cfg, SSM_TRAIN_SEQ, SSM_TRAIN_BATCH, SSM_TRAIN_STEPS, dev)
@@ -1364,27 +1408,45 @@ def phase_ssm_train(dev) -> dict:
           f"layers x steps = {expected} (forward and remat recompute)")
     check(launches["flash_attention"] == 0 and launches["paged_attention"] == 0,
           f"attention kernels ran in mamba2 training: {launches}")
+    design = ssd_design(getattr(torch, cfg.dtype), cfg.ssm_head_dim,
+                        cfg.ssm_state, cfg.ssd_chunk)
+    check(design == "mma", f"the training call took the {design} design")
     steady_ms = statistics.median(step_s[1:]) * 1e3
-    state, device_ms, by_kind, top = profiled_step(
-        step_fn, state, batches[SSM_TRAIN_STEPS], dev)
+    state, device_ms, by_kind, top, spans = profiled_step(
+        step_fn, state, batches[SSM_TRAIN_STEPS], dev,
+        ("ssd_scan_backward", "adamw_update"))
     ssd_ms = by_kind.get("ssd_scan", 0.0)
+    n_params = sum(t.numel() for t in P.leaves(state.params))
+    # the same steps from the same seed with the plain versions on the
+    # card: the kernel's training trajectory must track them
+    del state
+    torch.cuda.empty_cache()
+    with plain_kernels():
+        _, plain_losses, _ = run_steps(step_fn, fresh(),
+                                       batches[:SSM_TRAIN_STEPS], dev)
+    traj_err = max(abs(a - b) / abs(b) for a, b in zip(losses, plain_losses))
     tokens = SSM_TRAIN_SEQ * SSM_TRAIN_BATCH
     emit({"phase": "ssm_train", "arch": cfg.name, "layers": cfg.n_layers,
-          "d_model": cfg.d_model,
-          "params": sum(t.numel() for t in P.leaves(state.params)),
+          "d_model": cfg.d_model, "params": n_params,
           "seq": SSM_TRAIN_SEQ, "batch": SSM_TRAIN_BATCH, "remat": "full",
           "init_s": round(init_s, 2), "losses": losses,
+          "plain_losses": plain_losses, "loss_rel_err_vs_plain": traj_err,
+          "tolerance": TRAJ_TOL,
           "loss_fell": losses[-1] < losses[0],
           "step_ms": [1e3 * t for t in step_s],
           "steady_ms_per_step": steady_ms,
           "tokens_per_s": tokens / steady_ms * 1e3,
           "peak_mem_gb": peak_gb, "launches": launches,
+          "ssd_design": design,
           "profile": {"device_ms_per_step": device_ms,
                       "device_busy_share": device_ms / steady_ms,
                       "ssd_kernel_ms_per_step": ssd_ms,
                       "ssd_share_of_device": ssd_ms / device_ms,
+                      "ssd_backward_ms_per_step": spans["ssd_scan_backward"],
+                      "adamw_ms_per_step": spans["adamw_update"],
                       "ms_by_kind": by_kind, "top_kernels_ms": top}})
-    del state
+    check(traj_err <= TRAJ_TOL, f"ssm losses through the kernel {losses} vs "
+                                f"the plain version {plain_losses}")
     return launches
 
 
@@ -1406,31 +1468,101 @@ def ssd_bound(b, s, h, p, g, n, chunk, dtype) -> tuple[float, str, int, int]:
             bytes_, flops)
 
 
+SSD_PASSES = ("chunk_state", "state_pass", "chunk_scan", "fixup")
+
+
+def ssd_pass_ms(fn, dev, n=10) -> dict[str, float]:
+    """Device ms a call of each pass of the kernel (the scalar design's
+    one kernel as ``scalar``), by ``torch.profiler`` kernel names over
+    ``n`` calls, each after the L2 cache was flushed."""
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    parts = {**{p: p for p in SSD_PASSES}, "ssd_scan_kernel": "scalar"}
+    out = {}
+    for name, ms in device_ms_by_kernel(prof).items():
+        for key, part in parts.items():
+            if key in name:
+                out[part] = out.get(part, 0.0) + ms / n
+    return out
+
+
 def phase_ssd_timing(dev) -> tuple[float, dict]:
     """The kernel and its plain version at mamba2's training call
     (x [4, 2048, 80, 64] bf16, chunk 256, N 128) and its prefill call
     (x [1, 512, 80, 64]), L2 flushed before each launch, median of 25;
-    no single PyTorch call computes the scan, so no library time."""
+    each pass's device ms from the profiler.  No single PyTorch call
+    computes the scan, so no library time."""
     cfg = ALL_ARCHS[SSM_ARCH]
+    heads = kbuild.load("ssd_scan").ssd_scan_heads_per_block
+    heads.argtypes = [ctypes.c_int] * 5
+    heads.restype = ctypes.c_int
+    # registers and spills of each tensor-core pass: none that an arch's
+    # call takes may spill (the launcher's template: P and N up to 64 or
+    # 128); mamba2's are reported, and every instantiation's spills
+    mma = {e: r for e, r in ptxas_report("ssd_scan").items()
+           if any(f"ssd_scan_{p}_kernel" in e for p in SSD_PASSES)}
+
+    def tmpl(c):
+        return (f"ILi{4 if c.ssm_head_dim <= 64 else 8}"
+                f"ELi{4 if c.ssm_state <= 64 else 8}E")
+
+    taken = {tmpl(c) for c in ALL_ARCHS.values()
+             if c.family in ("ssm", "hybrid")}
+    used = {e: r for e, r in mma.items()
+            if "ILi" not in e or any(t in e for t in taken)}
+    check(len(used) >= len(SSD_PASSES)
+          and all(r.get("spill_stores", 1) == 0
+                  and r.get("spill_loads", 1) == 0 for r in used.values()),
+          f"an SSD pass that an arch's call takes spills: {used}")
+    ptxas = {p: next(r for e, r in used.items() if f"ssd_scan_{p}_kernel" in e
+                     and (tmpl(cfg) in e or "ILi" not in e))
+             for p in SSD_PASSES}
+    spills = {re.search(rf"ssd_scan_({'|'.join(SSD_PASSES)})_kernel"
+                        r"(ILi\d+ELi\d+E)?", e).group(0):
+              r.get("spill_stores", 0) + r.get("spill_loads", 0)
+              for e, r in mma.items()}
     rows = {}
     for name, b, s in (("train", SSM_TRAIN_BATCH, SSM_TRAIN_SEQ),
                        ("prefill", 1, PREFILL_LEN)):
-        shape = (b, s, cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups,
-                 cfg.ssm_state, cfg.ssd_chunk)
+        h, p, g, n = (cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups,
+                      cfg.ssm_state)
+        shape = (b, s, h, p, g, n, cfg.ssd_chunk)
         args = ssd_case(*shape[:6], torch.bfloat16, SEED, dev)
         y, fin = ssd_scan_cuda(*args, cfg.ssd_chunk)
         y_p, fin_p = ssd_scan_plain(*args, cfg.ssd_chunk)
         torch.cuda.synchronize()
         ok, err = ssd_close(y, y_p, fin, fin_p, torch.bfloat16)
         check(ok, f"ssd kernel != plain at the {name} call: {err}")
+        y_share = float((y != y_p).float().mean())
         del y, fin, y_p, fin_p
         bound, bound_by, bytes_, flops = ssd_bound(*shape, torch.bfloat16)
         t_kernel = time_cold(lambda: ssd_scan_cuda(*args, cfg.ssd_chunk),
                              dev, n=25)
         t_plain = time_cold(lambda: ssd_scan_plain(*args, cfg.ssd_chunk),
                             dev, n=25)
+        design = ssd_design(torch.bfloat16, p, n, cfg.ssd_chunk)
+        check(design == "mma", f"the {name} call took the {design} design")
+        passes = ssd_pass_ms(lambda: ssd_scan_cuda(*args, cfg.ssd_chunk), dev)
+        check(set(passes) == set(SSD_PASSES),
+              f"the profiler saw passes {passes} at the {name} call")
         rows[name] = {"x_shape": list(shape[:4]), "chunk": cfg.ssd_chunk,
                       "state": cfg.ssm_state, "dtype": "bfloat16",
+                      "design": design,
+                      "heads_per_block": heads(b, s, h, g, cfg.ssd_chunk),
+                      "workspace_bytes": 4 * ssd_workspace_elements(
+                          b, s, h, p, n, cfg.ssd_chunk, g),
+                      "pass_ms": passes,
+                      "pass_ms_sum": sum(passes.values()),
+                      "ptxas": ptxas, "spill_bytes_by_instance": spills,
+                      "y_share_differing_from_plain": y_share,
                       "ms": t_kernel, "plain_ms": t_plain,
                       "library_ms": None, "max_abs_err": err,
                       "bound_ms": bound, "bound_by": bound_by,

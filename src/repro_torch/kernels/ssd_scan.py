@@ -8,6 +8,15 @@ it).  ``ssd_scan_cuda`` checks the arguments and launches it on the current
 stream.  ``ssd_scan_plain`` is the reference's oracle ``ref.ssd_scan_ref``,
 that is ``models.ssm.ssd_chunked``, in torch ops, ``init_state`` kept.
 
+The kernel has two designs, picked by the arguments before the launch
+(``ssd_design``): bf16 with P and N multiples of 16 and a chunk that is a
+multiple of 64 up to 256, every arch's call, runs chunk-parallel on the
+tensor cores (``"mma"``: four passes sharing an fp32 workspace of
+``ssd_workspace_elements`` floats, which the wrapper allocates; y rounds
+as the plain version's does, see the kernel's header); f32 and other
+shapes run as fp32 FMAs, one block per (batch, head) (``"scalar"``).
+Nothing is retried on the other design.
+
 The TPU kernel has no backward: the reference trains through its jnp
 ``ssd_chunked``, whose gradient XLA derives.  ``SsdScan`` (the
 ``torch.autograd.Function`` the model calls on a card) therefore pairs the
@@ -33,6 +42,35 @@ import torch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_P = MAX_N = 128
+
+
+def ssd_design(dtype: torch.dtype, p: int, n: int, chunk: int) -> str:
+    """The design the kernel takes for x's dtype, P, N and the chunk:
+    ``"mma"`` (chunk-parallel on the tensor cores: bf16, P and N multiples
+    of 16, a chunk that is a multiple of 64 up to 256) or ``"scalar"``.
+    Mirrors ``ssd_scan_design`` in ``csrc/ssd_scan.cu``."""
+    mma = (dtype == torch.bfloat16 and p % 16 == 0 and n % 16 == 0
+           and chunk % 64 == 0 and chunk <= 256)
+    return "mma" if mma else "scalar"
+
+
+STATE_PARTS = 3   # bf16 parts of an incoming state (``kParts``)
+
+
+def ssd_workspace_elements(b: int, s: int, h: int, p: int, n: int,
+                           chunk: int, g: int) -> int:
+    """fp32 elements of the chunk-parallel design's workspace: every
+    chunk's own state ``[B, S / chunk, H, P, N]`` fp32, its incoming state
+    as ``STATE_PARTS`` bf16 parts, seg ``[B, S / chunk, H, chunk]``,
+    C·Bᵀ ``[B, S / chunk, G, chunk, chunk]`` fp32, and the values handed
+    to the last pass: a count for every 16 query rows of a head and
+    ``2 P`` entries each.  Equals ``ssd_scan_workspace_floats`` in
+    ``csrc/ssd_scan.cu``."""
+    states = b * (s // chunk) * h * p * n
+    tokens = b * s
+    return (states + (STATE_PARTS * states + 1) // 2 + tokens * h
+            + tokens * g * chunk + tokens * h // 16
+            + tokens * h // 16 * (2 * p))
 
 
 def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -183,6 +221,10 @@ def _check(x, dt, a, b_in, c_in, chunk) -> None:
                          f"{MAX_P} / {MAX_N}")
     if not 1 <= chunk <= s or s % chunk:
         raise ValueError(f"chunk {chunk} must divide the sequence {s}")
+    if ssd_design(x.dtype, p, n, chunk) == "mma":
+        for name, t in (("x", x), ("b_in", b_in), ("c_in", c_in)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned")
     for name, t in named:
         if t.device.type != "cuda" or t.device != x.device:
             raise ValueError(f"{name} must be on a CUDA device (with x), "
@@ -203,15 +245,20 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     g, n = b_in.shape[2], b_in.shape[3]
     fn = load("ssd_scan").ssd_scan_launch
     # pointers and the stream as c_void_p: a bare int would be cut to 32 bits
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     y = torch.empty_like(x)
     final = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    ws = None
+    if ssd_design(x.dtype, p, n, chunk) == "mma":
+        ws = torch.empty(ssd_workspace_elements(bsz, s, h, p, n, chunk, g),
+                         dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_in.data_ptr(),
-                c_in.data_ptr(), y.data_ptr(), final.data_ptr(), bsz, s, h, p,
-                g, n, chunk, _DTYPE_CODES[x.dtype],
+                c_in.data_ptr(), y.data_ptr(), final.data_ptr(),
+                None if ws is None else ws.data_ptr(), bsz, s, h, p, g, n,
+                chunk, _DTYPE_CODES[x.dtype],
                 torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: cudaError {rc} "
@@ -239,6 +286,9 @@ class SsdScan(torch.autograd.Function):
                  d_final: torch.Tensor | None):
         if d_y is None and d_final is None:
             return (None,) * 6
-        grads = ssd_scan_backward(*ctx.saved_tensors, ctx.chunk, d_y,
-                                  d_final)
+        # a profiler span, so a trace can attribute the backward's device
+        # time to the scan
+        with torch.profiler.record_function("ssd_scan_backward"):
+            grads = ssd_scan_backward(*ctx.saved_tensors, ctx.chunk, d_y,
+                                      d_final)
         return (*grads, None)

@@ -71,11 +71,12 @@ def clip_by_global_norm(grads: Any, max_norm: float
 
 
 @torch.no_grad()
+@torch.profiler.record_function("adamw_update")
 def apply(cfg: TrainConfig, state: OptState, grads: Any, params: Any
           ) -> tuple[Any, OptState, dict[str, torch.Tensor]]:
     """One AdamW update, in place.  Returns (params, new state, metrics);
     the params and the state's master, m and v are the tensors passed in,
-    updated."""
+    updated.  A profiler span, ``adamw_update``, holds its device time."""
     scale, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
     step = state.step + 1
     lr = schedule(cfg, step)

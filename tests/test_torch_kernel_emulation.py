@@ -32,7 +32,8 @@ from repro_torch.kernels.flash_attention import (flash_attention_plain,
                                                  logsumexp_plain)
 from repro_torch.kernels.hh_neuron import hh_step_plain
 from repro_torch.kernels.paged_attention import paged_attention_plain
-from repro_torch.kernels.ssd_scan import ssd_scan_plain
+from repro_torch.kernels.ssd_scan import (ssd_design, ssd_scan_plain,
+                                          ssd_workspace_elements)
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
@@ -57,7 +58,9 @@ using std::min;
 #define __restrict__
 struct uint2 { unsigned x, y; };
 struct uint4 { unsigned x, y, z, w; };
+struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
+inline float2 make_float2(float a, float b) { return {a, b}; }
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) {
   return {a, b, c, d};
 }
@@ -76,6 +79,10 @@ inline __nv_bfloat16 __float2bfloat16(float f) {  // round to nearest even
   return {(unsigned short)((u + 0x7fff + ((u >> 16) & 1)) >> 16)};
 }
 inline float expf(float x) { return std::exp(x); }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline int __popcll(unsigned long long x) { return __builtin_popcountll(x); }
+inline int __ffsll(long long x) { return __builtin_ffsll(x); }
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
@@ -202,9 +209,10 @@ _REWRITES = (
 )
 
 
-def _build_emulated(name, out):
-    """Compile ``csrc/<name>.cu`` against the stand-in; returns the library,
-    or skips where no C++20 compiler is found."""
+def _build_emulated(name, out, defines=()):
+    """Compile ``csrc/<name>.cu`` against the stand-in (with ``-D`` of each
+    of ``defines``); returns the library, or skips where no C++20 compiler
+    is found."""
     cxx = shutil.which("g++") or shutil.which("clang++")
     if cxx is None:
         pytest.skip("no C++ compiler to build the emulated kernel")
@@ -217,7 +225,8 @@ def _build_emulated(name, out):
     (out / "kernel.cpp").write_text(src)
     lib = out / "libkernel.so"
     r = subprocess.run([cxx, "-std=c++20", "-O0", "-shared", "-fPIC",
-                        "-pthread", "-o", str(lib), str(out / "kernel.cpp")],
+                        "-pthread", *(f"-D{d}" for d in defines), "-o",
+                        str(lib), str(out / "kernel.cpp")],
                        capture_output=True, text=True, timeout=300)
     if r.returncode != 0 and "barrier" in r.stderr:
         pytest.skip(f"{cxx} lacks C++20 <barrier>")
@@ -492,44 +501,53 @@ def test_emulated_ldmatrix_and_mma_make_a_matmul(tmp_path):
 # -------------------------------------------------------------------- ssd
 
 
+def _ssd_lib(tmp_path_factory, defines=()):
+    lib = _build_emulated("ssd_scan", tmp_path_factory.mktemp("emulated_ssd"),
+                          defines)
+    lib.ssd_scan_launch.argtypes = ([ctypes.c_void_p] * 8
+                                    + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    lib.ssd_scan_launch.restype = ctypes.c_int
+    lib.ssd_scan_design.argtypes = [ctypes.c_int] * 4
+    lib.ssd_scan_design.restype = ctypes.c_int
+    lib.ssd_scan_heads_per_block.argtypes = [ctypes.c_int] * 5
+    lib.ssd_scan_heads_per_block.restype = ctypes.c_int
+    lib.ssd_scan_workspace_floats.argtypes = [ctypes.c_int] * 7
+    lib.ssd_scan_workspace_floats.restype = ctypes.c_longlong
+    return lib
+
+
 @pytest.fixture(scope="module")
-def emulated_ssd(tmp_path_factory):
+def emulated_ssd_lib(tmp_path_factory):
     """The SSD scan kernel source built for the CPU stand-in."""
-    fn = _build_emulated("ssd_scan", tmp_path_factory.mktemp(
-        "emulated_ssd")).ssd_scan_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _ssd_lib(tmp_path_factory)
 
 
-def _ssd_launch(fn, x, dt, a, b_in, c_in, chunk):
+@pytest.fixture(scope="module")
+def emulated_ssd(emulated_ssd_lib):
+    return emulated_ssd_lib.ssd_scan_launch
+
+
+def _ssd_launch(fn, x, dt, a, b_in, c_in, chunk, ws_floats=None):
+    """Launch on NaN-filled outputs; the chunk-parallel design gets a
+    NaN-filled workspace (``ssd_workspace_elements`` floats unless
+    ``ws_floats`` says otherwise), the scalar design none."""
     bsz, s, h, p = x.shape
     g, n = b_in.shape[2:]
     y = torch.full_like(x, float("nan"))
     fin = torch.full((bsz, h, p, n), float("nan"))
+    ws = None
+    if ssd_design(x.dtype, p, n, chunk) == "mma":
+        if ws_floats is None:
+            ws_floats = ssd_workspace_elements(bsz, s, h, p, n, chunk, g)
+        ws = torch.full((ws_floats,), float("nan"))
     rc = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_in.data_ptr(),
-            c_in.data_ptr(), y.data_ptr(), fin.data_ptr(), bsz, s, h, p, g,
-            n, chunk, 1 if x.dtype == torch.bfloat16 else 0, None)
+            c_in.data_ptr(), y.data_ptr(), fin.data_ptr(),
+            None if ws is None else ws.data_ptr(), bsz, s, h, p, g, n, chunk,
+            1 if x.dtype == torch.bfloat16 else 0, None)
     return rc, y, fin
 
 
-# (b, s, h, p, g, n, chunk): S = chunk and S = 4 x chunk, G 1 and 2, a
-# chunk below one 32-row tile and one that is not a whole number of
-# tiles, P and N that are not powers of two (24, 40, 20, 36) beside the
-# archs' 32 and 64
-SSD_CASES = [(2, 64, 4, 32, 2, 16, 16), (1, 48, 2, 24, 1, 20, 48),
-             (1, 160, 2, 40, 2, 36, 40), (2, 64, 2, 64, 1, 64, 64)]
-
-
-@pytest.mark.parametrize("case", SSD_CASES,
-                         ids=lambda c: "x".join(map(str, c)))
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
-def test_emulated_ssd_kernel_matches_plain(emulated_ssd, case, dtype):
-    """y and the final state against the plain version (the reference's
-    2e-3; in bf16 y is held at one bf16 step plus 1e-3, both sides rounding
-    one fp32 result once)."""
+def _ssd_problem(case, dtype):
     b, s, h, p, g, n, chunk = case
     rng = np.random.default_rng(sum(case))
     x = torch.tensor(rng.standard_normal((b, s, h, p)),
@@ -539,28 +557,145 @@ def test_emulated_ssd_kernel_matches_plain(emulated_ssd, case, dtype):
     b_in, c_in = (torch.tensor(rng.standard_normal((b, s, g, n)),
                                dtype=torch.float32).to(dtype)
                   for _ in range(2))
-    rc, y, fin = _ssd_launch(emulated_ssd, x, dt, a, b_in, c_in, chunk)
+    return x, dt, a, b_in, c_in
+
+
+def _ssd_check(fn, case, dtype, ws_floats=None):
+    """y and the final state against the plain version (the reference's
+    2e-3; in bf16 y is held at one bf16 step plus 1e-3, both sides rounding
+    one fp32 result once).  Returns y."""
+    args = _ssd_problem(case, dtype)
+    rc, y, fin = _ssd_launch(fn, *args, case[-1], ws_floats)
     assert rc == 0
-    y_p, fin_p = ssd_scan_plain(x, dt, a, b_in, c_in, chunk)
+    y_p, fin_p = ssd_scan_plain(*args, case[-1])
     if dtype == torch.bfloat16:
         torch.testing.assert_close(y.float(), y_p.float(), rtol=2 ** -7,
                                    atol=1e-3)
     else:
         torch.testing.assert_close(y, y_p, rtol=2e-3, atol=2e-3)
     torch.testing.assert_close(fin, fin_p, rtol=2e-3, atol=2e-3)
+    return y
+
+
+# (b, s, h, p, g, n, chunk): S = chunk and S = 4 x chunk, G 1 and 2, a
+# chunk below one 32-row tile and one that is not a whole number of
+# tiles, P and N that are not powers of two (24, 40, 20, 36) beside the
+# archs' 32 and 64.  All take the scalar design but the last in bf16.
+SSD_CASES = [(2, 64, 4, 32, 2, 16, 16), (1, 48, 2, 24, 1, 20, 48),
+             (1, 160, 2, 40, 2, 36, 40), (2, 64, 2, 64, 1, 64, 64)]
+
+
+@pytest.mark.parametrize("case", SSD_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_emulated_ssd_kernel_matches_plain(emulated_ssd, case, dtype):
+    """y and the final state against the plain version."""
+    _ssd_check(emulated_ssd, case, dtype)
+
+
+# bf16 cases of the chunk-parallel design: mamba2's P 64 with N 128 and
+# zamba2's N 64, chunks of 64 and 256, S = chunk and S = 2 and 4 x chunk, G 1
+# and 2, two heads a group (so pass 3 shares one C B^T between them), and
+# P 128 with N 48 (the other template, a half group of n columns)
+SSD_MMA_CASES = [(1, 64, 4, 64, 2, 128, 64), (2, 256, 2, 64, 1, 64, 64),
+                 (1, 256, 2, 64, 1, 128, 256), (1, 512, 4, 64, 2, 64, 256),
+                 (1, 128, 2, 128, 1, 48, 64)]
+
+
+@pytest.mark.parametrize("case", SSD_MMA_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_emulated_ssd_chunked_design_matches_plain(emulated_ssd_lib, case):
+    """The chunk-parallel tensor-core design against the plain version, at
+    the scalar design's band; each case's heads share C B^T in pairs."""
+    b, s, h, p, g, n, chunk = case
+    assert _SSD_DESIGNS[emulated_ssd_lib.ssd_scan_design(p, n, chunk, 1)] \
+        == "mma"
+    assert emulated_ssd_lib.ssd_scan_heads_per_block(b, s, h, g, chunk) == 2
+    _ssd_check(emulated_ssd_lib.ssd_scan_launch, case, torch.bfloat16)
+
+
+_SSD_DESIGNS = {0: "scalar", 1: "mma"}
+
+
+def test_emulated_ssd_plain_order_recompute_matches_plain(tmp_path_factory):
+    """The chunk-parallel design built to recompute every y value in the
+    plain version's order (a flag scale that takes all of them), once with
+    every value handed to pass 4 and once with every value recomputed by
+    pass 3 itself: both at the band of the plain version, and equal bit
+    for bit (two routes to the same sums).  Two chunks, so the inter-chunk
+    sum is in it; two heads a group."""
+    case = (1, 128, 4, 64, 2, 128, 64)
+    b, s, h, p, g, n, chunk = case
+    ys = []
+    for cap in ("(16*(P))", "0"):
+        lib = _ssd_lib(tmp_path_factory, ("SSD_FLAG_SCALE=1e30f",
+                                          f"SSD_FIX_CAP(P)={cap}"))
+        ys.append(_ssd_check(lib.ssd_scan_launch, case, torch.bfloat16,
+                             lib.ssd_scan_workspace_floats(b, s, h, p, n,
+                                                           chunk, g)))
+    assert torch.equal(ys[0], ys[1])
+
+
+def test_emulated_ssd_design_matches_ssd_design(emulated_ssd_lib):
+    """The launcher's choice of design (``ssd_scan_design``, built from
+    the kernel source) equals ``ssd_design``'s on every P, N, chunk and
+    dtype tried, and refuses what the kernel does not take."""
+    fn = emulated_ssd_lib.ssd_scan_design
+    seen = set()
+    for p in (8, 16, 24, 40, 48, 64, 80, 96, 112, 128):
+        for n in (8, 16, 20, 32, 48, 64, 128):
+            for chunk in (16, 32, 48, 64, 96, 128, 192, 256, 320, 512):
+                for code, dtype in ((0, torch.float32), (1, torch.bfloat16)):
+                    got = _SSD_DESIGNS[fn(p, n, chunk, code)]
+                    assert got == ssd_design(dtype, p, n, chunk), (
+                        p, n, chunk, code)
+                    seen.add(got)
+    assert seen == {"mma", "scalar"}
+    for p, n, chunk, code in ((0, 16, 64, 1), (136, 16, 64, 1),
+                              (64, 0, 64, 0), (64, 136, 64, 1),
+                              (64, 64, 0, 1), (64, 64, 64, 2)):
+        assert fn(p, n, chunk, code) == -1, (p, n, chunk, code)
+
+
+def test_emulated_ssd_workspace_matches_ssd_workspace_elements(
+        emulated_ssd_lib):
+    """The workspace the wrapper allocates (``ssd_workspace_elements``) is
+    the one the kernel source lays out, at the archs' calls and the
+    emulated cases."""
+    fn = emulated_ssd_lib.ssd_scan_workspace_floats
+    for b, s, h, p, g, n, chunk in SSD_MMA_CASES + [
+            (4, 2048, 80, 64, 1, 128, 256), (1, 512, 80, 64, 1, 64, 256)]:
+        assert fn(b, s, h, p, n, chunk, g) == ssd_workspace_elements(
+            b, s, h, p, n, chunk, g), (b, s, h, p, n, chunk, g)
+
+
+def test_emulated_ssd_heads_per_block_fills_the_card(emulated_ssd_lib):
+    """Pass 3's heads a block, from the kernel source: 8 at mamba2's
+    training call (1,280 blocks), 2 at one request's 512-token prefill
+    (320 blocks: E 4 would leave 160 on 132 SMs), 1 where a group has one
+    head, and a refusal where the chunk does not divide S."""
+    fn = emulated_ssd_lib.ssd_scan_heads_per_block
+    assert fn(4, 2048, 80, 1, 256) == 8
+    assert fn(1, 512, 80, 1, 256) == 2
+    assert fn(1, 512, 2, 2, 256) == 1
+    assert fn(1, 500, 80, 1, 256) == -1
 
 
 def test_emulated_ssd_kernel_refuses_what_it_does_not_take(emulated_ssd):
     """A chunk that does not divide S, groups that do not divide the heads,
-    P or N above 128 are refused before any launch
-    (cudaErrorInvalidValue), never computed wrongly."""
+    P or N above 128, and the chunk-parallel design without its workspace
+    are refused before any launch (cudaErrorInvalidValue), never computed
+    wrongly."""
     z = torch.zeros(1 << 16)
     for s, h, p, g, n, chunk in ((48, 2, 8, 1, 8, 32), (32, 3, 8, 2, 8, 16),
                                  (32, 2, 136, 1, 8, 16),
                                  (32, 2, 8, 1, 136, 16)):
-        rc = emulated_ssd(*[z.data_ptr()] * 7, 1, s, h, p, g, n, chunk, 0,
+        rc = emulated_ssd(*[z.data_ptr()] * 8, 1, s, h, p, g, n, chunk, 0,
                           None)
         assert rc != 0, (s, h, p, g, n, chunk)
+    assert emulated_ssd(*[z.data_ptr()] * 7, None, 1, 64, 2, 16, 1, 16, 64,
+                        1, None) != 0
 
 
 # ---------------------------------------------------------------------- hh

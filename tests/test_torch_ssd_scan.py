@@ -15,9 +15,12 @@ against its plain version.
   against ``jax.grad`` of ``ssd_chunked``: f32, 1e-4 relative to each
   gradient's largest entry (fp32 sums in another order); bf16 inputs at
   2e-2 (the gradients are rounded to bf16 once).
-* The dispatch, the chunk rule and the wrapper's argument checks, here;
-  the CUDA kernel against its plain version and ``SsdScan``'s gradients on
-  the card (``cuda`` marker; they skip without a GPU).
+* The dispatch, the chunk rule, the wrapper's argument checks and the
+  choice of design (``ssd_design``: the chunk-parallel tensor-core design
+  at every arch's bf16 call), here; the CUDA kernel against its plain
+  version in both designs and ``SsdScan``'s gradients through the
+  tensor-core forward on the card (``cuda`` marker; they skip without a
+  GPU).
 """
 import functools
 
@@ -26,8 +29,11 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.ssd_scan import (SsdScan, ssd_scan_backward,
-                                          ssd_scan_cuda, ssd_scan_plain)
+from repro_torch.configs import ALL_ARCHS
+from repro_torch.kernels.ssd_scan import (SsdScan, ssd_design,
+                                          ssd_scan_backward, ssd_scan_cuda,
+                                          ssd_scan_plain,
+                                          ssd_workspace_elements)
 from repro_torch.models.ssm import ssd_decode_step
 
 # tests/test_kernels.py::test_ssd_matches_chunked_oracle: (s, chunk) x g
@@ -284,6 +290,47 @@ def test_cuda_wrapper_rejects_bad_arguments(bad):
         ssd_scan_cuda(*args, 16)
 
 
+def test_cuda_wrapper_rejects_unaligned_tensor_core_inputs():
+    """The tensor-core design stages x, B and C with 16-byte copies: the
+    wrapper refuses an x that starts 2 bytes off (meta tensors, as
+    above)."""
+    args = [t.to("meta") for t in _torch(_problem(1, 64, 2, 16, 1, 16,
+                                                  seed=52), "bfloat16")]
+    args[0] = torch.empty(args[0].numel() + 1, dtype=torch.bfloat16,
+                          device="meta")[1:].view(args[0].shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ssd_scan_cuda(*args, 64)
+
+
+def test_ssd_design_takes_the_tensor_cores_at_every_arch_call():
+    """Every ssm and hybrid arch's bf16 scan (P, N, its chunk) takes the
+    chunk-parallel tensor-core design; f32 and shapes outside it take the
+    scalar design."""
+    archs = [c for c in ALL_ARCHS.values() if c.family in ("ssm", "hybrid")]
+    assert archs
+    for cfg in archs:
+        p, n, chunk = cfg.ssm_head_dim, cfg.ssm_state, cfg.ssd_chunk
+        assert ssd_design(torch.bfloat16, p, n, chunk) == "mma", cfg.name
+        assert ssd_design(torch.float32, p, n, chunk) == "scalar", cfg.name
+    for p, n, chunk in ((40, 24, 32), (64, 128, 32), (64, 128, 320),
+                        (24, 64, 64), (64, 20, 64)):
+        assert ssd_design(torch.bfloat16, p, n, chunk) == "scalar"
+
+
+def test_ssd_workspace_at_the_training_call():
+    """The tensor-core design's workspace at mamba2's training call: 8
+    chunks x 80 heads of [64, 128] states a batch row, once in fp32 (84 MB
+    over 4 rows) and once as three bf16 parts (1.5 times as many bytes);
+    seg [4, 8, 80, 256]; C·Bᵀ [4, 8, 1, 256, 256]; and a count and 128
+    entries for every 16 query rows of a head."""
+    states = 4 * 8 * 80 * 64 * 128
+    regions = 4 * 2048 * 80 // 16
+    assert ssd_workspace_elements(4, 2048, 80, 64, 128, 256, 1) == (
+        states + 3 * states // 2 + 4 * 2048 * 80 + 4 * 2048 * 256
+        + regions + regions * 128)
+    assert 83e6 < 4 * states < 84e6
+
+
 # ------------------------------------------------------------ on the card
 
 
@@ -305,8 +352,14 @@ CARD_CASES = ([(2, s, 4, 32, g, 16, c) for s, c, g in SWEEP]
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_kernel_matches_plain(cuda, dtype):
     """y and the final state of the kernel against the plain version on
-    the card (f32 2e-3; bf16 y one bf16 step plus 1e-3)."""
+    the card (f32 2e-3; bf16 y one bf16 step plus 1e-3).  In bf16 the
+    cases take both designs (the chunk-parallel one at chunks of 64 and
+    256, every full-width call among them), in f32 the scalar one."""
     ops.reset_launches()
+    designs = {ssd_design(getattr(torch, dtype), p, n, chunk)
+               for _, _, _, p, _, n, chunk in CARD_CASES}
+    assert designs == ({"mma", "scalar"} if dtype == "bfloat16"
+                       else {"scalar"})
     for i, (b, s, h, p, g, n, chunk) in enumerate(CARD_CASES):
         args = _torch(_problem(b, s, h, p, g, n, seed=i), dtype, cuda)
         y, fin = ssd_scan_cuda(*args, chunk)
@@ -319,15 +372,21 @@ def test_cuda_kernel_matches_plain(cuda, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [32, 64])
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
-def test_cuda_autograd_function_matches_plain_gradients(cuda, dtype, tol):
+def test_cuda_autograd_function_matches_plain_gradients(cuda, dtype, tol,
+                                                        chunk):
     """``SsdScan`` (kernel forward, torch-op backward) against autograd
-    through the plain version, on the card."""
+    through the plain version, on the card; the bf16 forward is the
+    scalar design at chunk 32 and the chunk-parallel tensor-core design at
+    chunk 64."""
     arrays = _problem(2, 128, 4, 32, 2, 16, seed=61, dt_hi=0.3)
     d_y, d_fin = _cotangents((2, 128, 4, 32), (2, 4, 32, 16), seed=62)
+    assert ssd_design(getattr(torch, dtype), 32, 16, chunk) == (
+        "mma" if dtype == "bfloat16" and chunk == 64 else "scalar")
     grads = []
-    for fn in (lambda *t: SsdScan.apply(*t, 32),
-               lambda *t: ssd_scan_plain(*t, 32)):
+    for fn in (lambda *t: SsdScan.apply(*t, chunk),
+               lambda *t: ssd_scan_plain(*t, chunk)):
         inputs = [t.requires_grad_() for t in _torch(arrays, dtype, cuda)]
         y, fin = fn(*inputs)
         torch.autograd.backward((y, fin), (
