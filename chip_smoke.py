@@ -116,8 +116,16 @@ non-zero without printing a result:
                   ``tests/test_kernels.py`` sweep (n 7-4096, dt 0.0125 and
                   0.025, its input distributions) plus the ring's 131,072
                   cells and inputs at v = -40 and -55 mV (``_vtrap``'s
-                  limits); v, m, h and n within 3e-5.
-19. gather      — the paged engine's gather pathway: full-width
+                  limits); v, m, h and n within 3e-5, and whether the bits
+                  are equal.
+19. cable_epoch_kernel — the epoch kernel (every cell through a whole
+                  exchange epoch of cable steps in one launch) against its
+                  plain version: C 2, 4, 8 and 32, 7, 1,000 and 131,072
+                  cells, 1, 37 and 200 steps, a state away from rest,
+                  seeded incoming spikes, the stimulus cut mid-epoch; every
+                  step's spikes equal, the state within 1e-3, and whether
+                  the bits are equal.
+20. gather      — the paged engine's gather pathway: full-width
                   deepseek-7b cut to 4 layers, f32 weights and caches, on
                   the integration workload; ``compare_engines`` ok with
                   ``kernel="gather"`` and ``kernel="paged"``, greedy and
@@ -125,20 +133,33 @@ non-zero without printing a result:
                   kernel's.  Then the serve phase's bf16 trace (full depth)
                   once through ``kernel="gather"``: tokens/s and agreement
                   with the paged run, measured, not checked.
-20. neuro       — the ring simulation at the repo's production scale
+21. epoch_hold  — one epoch of the 131,072-cell ring (32 compartments,
+                  the stimulus on for its first 120 steps, seeded incoming
+                  spikes) stepped three ways: ``cable.step`` on the card
+                  (the HH soma kernel once a dt step, counts zeroed just
+                  before), the epoch kernel, and the plain version; all
+                  three give the same spikes at every step and states
+                  within 1e-3.
+22. neuro       — the ring simulation at the repo's production scale
                   (``benchmarks/ring_podscale.py``: 131,072 cells of 32
                   compartments, 200 ms, 5 ms delay, 40 epochs of 200 dt
                   steps) on one card, as Arbor's single ring and as
-                  NEURON's ringtest of 256 rings: through the HH kernel
-                  (counts zeroed just before, one launch a dt step, two
-                  runs: warm and timed) and through the plain version;
-                  spike counts and wavefronts identical, final state within
-                  1e-3 mV; each ring's own dynamics checked; one epoch
-                  under ``torch.profiler``.  A small ring on the CPU (plain
+                  NEURON's ringtest of 256 rings: through the epoch kernel
+                  (counts zeroed just before, one launch an epoch and no
+                  soma kernel launch, two runs: warm and timed) and through
+                  the plain version; spike counts and wavefronts
+                  identical, final state within 1e-3 mV; each ring's own
+                  dynamics checked; one epoch (ten runs of it) under
+                  ``torch.profiler``.  A small ring on the CPU (plain
                   version) and on the card must give the same spikes.
-21. hh_timing   — the HH kernel and its plain version at the ring's
+23. hh_timing   — the HH kernel and its plain version at the ring's
                   131,072 cells, L2 flushed, median of 50, beside the bytes
                   bound.
+24. cable_epoch_timing — the epoch kernel and its plain version at one
+                  epoch of the ring (131,072 cells x 32 compartments, 200
+                  steps), L2 flushed, median of 25, beside the operations
+                  bound; each instantiation's registers and spills (none
+                  up to C = 32 may spill).
 
 Then the ``kernels`` summary line, the card's name and power limit as
 ``nvidia-smi`` reports them, and last ``{"ok": true, "device": ...}``.
@@ -171,8 +192,9 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     FlashAttention, flash_attention_cuda, flash_attention_plain,
     flash_design, logsumexp_plain)
-from repro_torch.kernels.hh_neuron import (hh_step_cuda,  # noqa: E402
-                                           hh_step_plain)
+from repro_torch.kernels.hh_neuron import (  # noqa: E402
+    EPOCH_COMPARTMENTS, cable_epoch_cuda, cable_epoch_plain, hh_step_cuda,
+    hh_step_plain)
 from repro_torch.launch.train import train as train_cli  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention_cuda, paged_attention_plain)
@@ -182,10 +204,11 @@ from repro_torch.kernels.ssd_scan import (  # noqa: E402
 from repro_torch.models import build  # noqa: E402
 from repro_torch.models import params as P  # noqa: E402
 from repro_torch.models.decode import decode_paged_chunk  # noqa: E402
+from repro_torch.neuro import cable  # noqa: E402
 from repro_torch.neuro import sim as neuro_sim  # noqa: E402
 from repro_torch.neuro.cable import (CellConfig, CellState,  # noqa: E402
                                      init_state)
-from repro_torch.neuro.ring import RingConfig  # noqa: E402
+from repro_torch.neuro.ring import RingConfig, is_ring_head  # noqa: E402
 from repro_torch.serve import (PagedServeEngine, Request,  # noqa: E402
                                SamplingParams, ServeEngine, compare_engines,
                                token_matrix)
@@ -822,6 +845,8 @@ def kernel_kind(name: str) -> str:
         return "ssd_scan"
     if "hh_step" in low:
         return "hh_step"
+    if "cable_epoch" in low:
+        return "cable_epoch"
     if any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass")):
         return ("matmul_f32" if "f32f32" in low or "sgemm" in low
                 else "matmul_bf16")
@@ -1175,23 +1200,20 @@ class _PlainSsd(torch.autograd.Function):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """The model's flash, SSD and HH calls go to their plain versions, on
-    the card: the reference side of the parity phases (the port has no
-    switch)."""
-    saved = ops.ssd_scan, ops.hh_step
+    """The model's flash, SSD and cable epoch calls go to their plain
+    versions, on the card: the reference side of the parity phases (the
+    port has no switch)."""
+    saved = ops.ssd_scan, ops.cable_epoch
 
     def plain_ssd(x, dt, a, b_in, c_in, chunk):
         return _PlainSsd.apply(x, dt, a, b_in, c_in, min(chunk, x.shape[1]))
 
-    def plain_hh(v0, m, h, n, g_syn, i_axial, dt, i_ext):
-        return hh_step_plain(v0, m, h, n, g_syn, i_axial, i_ext, dt=dt)
-
-    ops.ssd_scan, ops.hh_step = plain_ssd, plain_hh
+    ops.ssd_scan, ops.cable_epoch = plain_ssd, cable_epoch_plain
     try:
         with plain_flash():
             yield
     finally:
-        ops.ssd_scan, ops.hh_step = saved
+        ops.ssd_scan, ops.cable_epoch = saved
 
 
 def phase_ssm_train_parity(dev) -> None:
@@ -1598,9 +1620,9 @@ def hh_inputs(n, seed, dev, v=None) -> list:
     return [torch.tensor(a, dtype=torch.float32, device=dev) for a in arrays]
 
 
-def hh_compare(args, dt) -> float:
+def hh_compare(args, dt) -> tuple[float, bool]:
     """Kernel against plain on the card: every output finite and within
-    HH_TOL.  Returns the max abs error."""
+    HH_TOL.  Returns the max abs error and whether the bits are equal."""
     got = hh_step_cuda(*args, dt=dt)
     want = hh_step_plain(*args, dt=dt)
     torch.cuda.synchronize()
@@ -1610,18 +1632,86 @@ def hh_compare(args, dt) -> float:
         err = max(err, float((a - b).abs().max()))
         check(torch.allclose(a, b, rtol=HH_TOL, atol=HH_TOL),
               f"hh kernel != plain: {name}, n {a.numel()}, dt {dt}")
-    return err
+    return err, all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def phase_hh_kernel(dev) -> float:
     cases = [(n, dt, None) for n in HH_SWEEP_N for dt in HH_SWEEP_DT]
     cases += [(4096, dt, [-40.0, -55.0]) for dt in HH_SWEEP_DT]
-    err = max(hh_compare(hh_inputs(n, SEED + i, dev, v), dt)
-              for i, (n, dt, v) in enumerate(cases))
+    results = [hh_compare(hh_inputs(n, SEED + i, dev, v), dt)
+               for i, (n, dt, v) in enumerate(cases)]
+    err = max(e for e, _ in results)
     emit({"phase": "hh_kernel", "cases": len(cases), "n": list(HH_SWEEP_N),
           "dt": list(HH_SWEEP_DT), "vtrap_limits_mV": [-40.0, -55.0],
-          "max_abs_err": err, "tolerance": HH_TOL})
+          "max_abs_err": err, "tolerance": HH_TOL,
+          "bits_equal_cases": sum(eq for _, eq in results)})
     return err
+
+
+# --------------------------------------------------------- cable epoch
+
+EPOCH_SWEEP_C = (2, 4, 8, 32)          # the repo's configs and tests
+EPOCH_SWEEP_CELLS = (7, 1000, 131072)
+EPOCH_SWEEP_STEPS = (1, 37, 200)
+
+
+def epoch_inputs(n, c, steps, seed, dev):
+    """tests/test_torch_neuro.py's epoch inputs: a state away from rest,
+    spikes arriving at 2% of (step, cell) from a third of the way into
+    the epoch, the stimulus into every fourth cell."""
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32,  # noqa: E731
+                                 device=dev)
+    state = CellState(f32(rng.uniform(-75, -50, (n, c))),
+                      f32(rng.uniform(0.02, 0.1, n)),
+                      f32(rng.uniform(0.5, 0.7, n)),
+                      f32(rng.uniform(0.3, 0.4, n)),
+                      f32(rng.uniform(0, 2, n)))
+    incoming = rng.uniform(size=(steps, n)) < 0.02
+    incoming[:steps // 3] = False
+    i_stim = rng.uniform(10, 25, n) * (np.arange(n) % 4 == 0)
+    return state, f32(incoming), f32(i_stim)
+
+
+def epoch_compare(got, want, what) -> tuple[float, bool]:
+    """Two epochs' ``(state, spiked)``: spikes equal at every step, the
+    state finite and within RING_STATE_TOL.  Returns the largest state
+    difference and whether the bits are equal."""
+    (st, sp), (st_w, sp_w) = got, want
+    check(torch.equal(sp, sp_w),
+          f"{what}: spikes differ at {int((sp != sp_w).sum())} "
+          f"(step, cell) of {int(sp_w.sum())} spikes")
+    err = 0.0
+    for name, a, b in zip(CellState._fields, st, st_w):
+        check(bool(torch.isfinite(a).all()), f"{what}: non-finite {name}")
+        err = max(err, float((a - b).abs().max()))
+    check(err <= RING_STATE_TOL, f"{what}: state differs by {err}")
+    return err, all(torch.equal(a, b) for a, b in zip(st, st_w))
+
+
+def phase_cable_epoch_kernel(dev) -> float:
+    cases = [(n, c, steps) for c in EPOCH_SWEEP_C for n in EPOCH_SWEEP_CELLS
+             for steps in EPOCH_SWEEP_STEPS]
+    errs, equal, spikes = [], 0, 0
+    for i, (n, c, steps) in enumerate(cases):
+        state, incoming, i_stim = epoch_inputs(n, c, steps, SEED + i, dev)
+        cfg = CellConfig(n_compartments=c)
+        stim_left = (steps + 1) // 2        # cut mid-epoch
+        want = cable_epoch_plain(state, cfg, incoming, i_stim, stim_left)
+        got = cable_epoch_cuda(state, cfg, incoming, i_stim, stim_left)
+        torch.cuda.synchronize()
+        err, eq = epoch_compare(got, want, f"cable epoch {n}x{c}, {steps} "
+                                           f"steps")
+        errs.append(err)
+        equal += eq
+        spikes += int(want[1].sum())
+    emit({"phase": "cable_epoch_kernel", "cases": len(cases),
+          "compartments": list(EPOCH_SWEEP_C),
+          "cells": list(EPOCH_SWEEP_CELLS), "steps": list(EPOCH_SWEEP_STEPS),
+          "spikes": spikes, "spikes_equal": True,
+          "max_state_abs_err": max(errs), "state_tolerance": RING_STATE_TOL,
+          "bits_equal_cases": equal})
+    return max(errs)
 
 
 def phase_hh_timing(dev) -> tuple[float, dict]:
@@ -1630,7 +1720,7 @@ def phase_hh_timing(dev) -> tuple[float, dict]:
     computes the update, so no library time."""
     n, dt = RING_CELLS, 0.025
     args = hh_inputs(n, SEED, dev)
-    err = hh_compare(args, dt)
+    err, _ = hh_compare(args, dt)
     bytes_ = 11 * n * 4                 # 7 inputs read, 4 outputs written
     flops = HH_OPS_PER_CELL * n
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
@@ -1649,6 +1739,62 @@ def phase_hh_timing(dev) -> tuple[float, dict]:
     return err, timing
 
 
+def epoch_ops_per_cell_step(c) -> int:
+    """fp32 operations of one cable step of one cell, by the code: the
+    synapse 3, the stencil 4 a compartment, the dendrite 5 a compartment
+    past the soma, the soma HH_OPS_PER_CELL, the spike test 2."""
+    return 3 + 4 * c + 5 * (c - 1) + HH_OPS_PER_CELL + 2
+
+
+def phase_cable_epoch_timing(dev) -> tuple[float, dict]:
+    """One epoch of the ring through the epoch kernel and through its plain
+    version, L2 flushed before each call, median of 25; no single PyTorch
+    call computes an epoch, so no library time."""
+    n, c, steps = RING_CELLS, RING_COMPARTMENTS, 200
+    state, incoming, i_stim = epoch_inputs(n, c, steps, SEED, dev)
+    cfg = CellConfig(n_compartments=c)
+    err, equal = epoch_compare(
+        cable_epoch_cuda(state, cfg, incoming, i_stim, 100),
+        cable_epoch_plain(state, cfg, incoming, i_stim, 100), "epoch timing")
+    # the state read and written once, incoming and i_stim read, spiked
+    # written (one byte a step and cell)
+    bytes_ = 2 * n * (c + 4) * 4 + steps * n * 4 + n * 4 + steps * n
+    flops = n * steps * epoch_ops_per_cell_step(c)
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_OPS_PER_S * 1e3
+    t_kernel = time_cold(
+        lambda: cable_epoch_cuda(state, cfg, incoming, i_stim, 100), dev,
+        n=25)
+    t_plain = time_cold(
+        lambda: cable_epoch_plain(state, cfg, incoming, i_stim, 100), dev,
+        n=25)
+    bound = max(t_bytes, t_ops)
+    regs = {}
+    for entry, r in ptxas_report("hh_neuron").items():
+        if m := re.search(r"cable_epoch_kernelILi(\d+)E", entry):
+            regs[int(m.group(1))] = r
+    check(sorted(regs) == list(EPOCH_COMPARTMENTS),
+          f"ptxas reports epoch instantiations {sorted(regs)}")
+    spills = {k: r.get("spill_stores", 0) + r.get("spill_loads", 0)
+              for k, r in regs.items()}
+    check(not any(spills[k] for k in regs if k <= 32),
+          f"an epoch instantiation up to C = 32 spills: {regs}")
+    timing = {"phase": "cable_epoch_timing", "cells": n, "compartments": c,
+              "steps": steps, "ms": t_kernel, "plain_ms": t_plain,
+              "library_ms": None, "max_abs_err": err, "bits_equal": equal,
+              "bound_ms": bound,
+              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+              "bytes": bytes_, "flops": flops,
+              "ops_per_cell_step": epoch_ops_per_cell_step(c),
+              "bound_share": bound / t_kernel,
+              "cell_steps_per_s": n * steps / t_kernel * 1e3,
+              "registers": {k: regs[k].get("registers") for k in sorted(regs)},
+              "spill_bytes": {k: spills[k] for k in sorted(regs)},
+              "gpu": nvidia_smi()}
+    emit(timing)
+    return err, timing
+
+
 # ------------------------------------------------------------------ neuro
 
 # benchmarks/ring_podscale.py's production ring, whole on one card
@@ -1663,9 +1809,13 @@ def ring_config(n_cells, n_rings, t_end, compartments) -> RingConfig:
                       cell=CellConfig(n_compartments=compartments))
 
 
+EPOCH_PROFILE_RUNS = 10   # one epoch is ~1.5 ms: a window the profiler keeps
+
+
 def epoch_profile(cfg, dev) -> dict:
-    """One epoch of ``cfg`` (its first: the stimulus is on), timed on the
-    host clock, then again under ``torch.profiler``: the device's busy
+    """One epoch of ``cfg`` (its first: the stimulus is on), run
+    EPOCH_PROFILE_RUNS times on the host clock, then as many times again
+    under ``torch.profiler``; every figure is per run.  The device's busy
     share is the profiled device time over the unprofiled wall time."""
     from torch.profiler import ProfilerActivity, profile
     one = dataclasses.replace(cfg, t_end_ms=cfg.delay_ms)
@@ -1673,21 +1823,29 @@ def epoch_profile(cfg, dev) -> dict:
     neuro_sim.run(one, state, dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    neuro_sim.run(one, state, dev)
+    for _ in range(EPOCH_PROFILE_RUNS):
+        neuro_sim.run(one, state, dev)
     torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
+    wall_ms = (time.perf_counter() - t0) * 1e3 / EPOCH_PROFILE_RUNS
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        neuro_sim.run(one, state, dev)
+        for _ in range(EPOCH_PROFILE_RUNS):
+            neuro_sim.run(one, state, dev)
         torch.cuda.synchronize()
-    by_kernel = device_ms_by_kernel(prof)
+    by_kernel = {k: v / EPOCH_PROFILE_RUNS
+                 for k, v in device_ms_by_kernel(prof).items()}
     device_ms = sum(by_kernel.values())
-    hh_ms = sum(v for k, v in by_kernel.items() if "hh_step" in k)
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
-    return {"dt_steps": one.delay_steps, "wall_ms": wall_ms,
+    epoch_ms = sum(v for k, v in by_kernel.items() if "cable_epoch" in k)
+    short = {}          # summed by the name's first 60 characters
+    for k, v in by_kernel.items():
+        short[k[:60]] = short.get(k[:60], 0.0) + v
+    top = sorted(short.items(), key=lambda kv: -kv[1])[:8]
+    return {"dt_steps": one.delay_steps, "runs": EPOCH_PROFILE_RUNS,
+            "wall_ms": wall_ms,
             "device_ms": device_ms, "device_busy_share": device_ms / wall_ms,
-            "hh_kernel_ms": hh_ms, "hh_share_of_device": hh_ms / device_ms,
-            "top_kernels_ms": {k[:60]: v for k, v in top}}
+            "epoch_kernel_ms": epoch_ms,
+            "epoch_kernel_share_of_device": epoch_ms / device_ms,
+            "top_kernels_ms": dict(top)}
 
 
 def ring_dynamics_ok(cfg, res) -> bool:
@@ -1712,6 +1870,48 @@ def ring_dynamics_ok(cfg, res) -> bool:
             and res.total_spikes == cfg.n_rings * k)
 
 
+def phase_epoch_hold(dev) -> int:
+    """One epoch of the ring stepped three ways: ``cable.step`` on the card
+    (the soma kernel once a dt step), the epoch kernel, the plain version.
+    Returns the soma kernel's launches on its path."""
+    cfg = ring_config(RING_CELLS, 1, RING_DELAY, RING_COMPARTMENTS)
+    steps, n = cfg.delay_steps, cfg.n_cells
+    stim_left = min(int(round(cfg.stim_ms / cfg.cell.dt)), steps)
+    state0 = init_state(n, cfg.cell, dev)
+    rng = np.random.default_rng(SEED)
+    incoming = torch.tensor(rng.uniform(size=(steps, n)) < 0.002,
+                            dtype=torch.float32, device=dev)
+    i_stim = is_ring_head(cfg, dev).float() * cfg.stim_current
+    i_rest = torch.zeros_like(i_stim)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    state, spiked = state0, torch.empty_like(incoming, dtype=torch.bool)
+    for s in range(steps):
+        state, spiked[s] = cable.step(state, cfg.cell, incoming[s],
+                                      i_stim if s < stim_left else i_rest)
+    launches = dict(ops.LAUNCHES)
+    check(launches["hh_step"] == steps
+          and sum(launches.values()) == steps,
+          f"cable.step over an epoch launched {launches}, expected hh_step "
+          f"once a step")
+    stepped = (state, spiked)
+    epoch = ops.cable_epoch(state0, cfg.cell, incoming, i_stim, stim_left)
+    plain = cable_epoch_plain(state0, cfg.cell, incoming, i_stim, stim_left)
+    torch.cuda.synchronize()
+    errs = {}
+    for what, (a, b) in {"epoch_vs_plain": (epoch, plain),
+                         "stepped_vs_plain": (stepped, plain),
+                         "stepped_vs_epoch": (stepped, epoch)}.items():
+        errs[what] = epoch_compare(a, b, f"epoch hold {what}")
+    emit({"phase": "epoch_hold", "cells": n, "compartments": RING_COMPARTMENTS,
+          "steps": steps, "stim_steps": stim_left,
+          "spikes": int(plain[1].sum()), "spikes_equal": True,
+          "hh_step_launches": launches["hh_step"],
+          "max_state_abs_err": {k: e for k, (e, _) in errs.items()},
+          "bits_equal": {k: eq for k, (_, eq) in errs.items()}})
+    return launches["hh_step"]
+
+
 def phase_neuro(dev) -> tuple[int, list]:
     # a small ring through the plain version on the CPU and through the
     # kernel on the card (tests/test_neuro.py's first ring)
@@ -1729,10 +1929,11 @@ def phase_neuro(dev) -> tuple[int, list]:
         ops.reset_launches()
         got = neuro_sim.simulate(cfg, device=dev)
         launches = dict(ops.LAUNCHES)
-        check(launches["hh_step"] == 2 * steps
-              and sum(launches.values()) == launches["hh_step"],
-              f"{name}: launches {launches}, expected hh_step once a dt "
-              f"step, two runs of {steps} steps (warm and timed)")
+        check(launches["cable_epoch"] == 2 * cfg.n_epochs
+              and sum(launches.values()) == launches["cable_epoch"],
+              f"{name}: launches {launches}, expected cable_epoch once an "
+              f"epoch, two runs of {cfg.n_epochs} epochs (warm and timed), "
+              f"and no other kernel")
         with plain_kernels():
             want = neuro_sim.simulate(cfg, device=dev)
         check(ops.LAUNCHES == launches, "the plain run launched a kernel")
@@ -1757,7 +1958,8 @@ def phase_neuro(dev) -> tuple[int, list]:
                "wall_s": got.wall_s, "plain_wall_s": want.wall_s,
                "dt_steps_per_s": steps / got.wall_s,
                "cell_steps_per_s": steps * cfg.n_cells / got.wall_s,
-               "hh_launches": launches["hh_step"],
+               "cable_epoch_launches": launches["cable_epoch"],
+               "hh_step_launches": launches["hh_step"],
                "spikes_equal_plain": same_counts,
                "wavefront_equal_plain": same_fronts,
                "state_max_abs_err_vs_plain": state_err,
@@ -1766,7 +1968,7 @@ def phase_neuro(dev) -> tuple[int, list]:
         emit({"phase": "neuro", **row})
         rows.append(row)
         if n_rings == 1:
-            main_launches = launches["hh_step"]
+            main_launches = launches["cable_epoch"]
         del got, want
     return main_launches, rows
 
@@ -1918,6 +2120,7 @@ def main() -> int:
     phase_kernel(dev)
     phase_flash_kernel(dev)
     phase_hh_kernel(dev)
+    phase_cable_epoch_kernel(dev)
     phase_reference(dev)
     phase_gather(dev)
     model, params, replay, best, launches, paged = phase_serve(dev)
@@ -1943,19 +2146,29 @@ def main() -> int:
     torch.cuda.empty_cache()
     ssd_err, ssd = phase_ssd_timing(dev)
     torch.cuda.empty_cache()
-    hh_launches, _ = phase_neuro(dev)
+    hh_launches = phase_epoch_hold(dev)
+    epoch_launches, _ = phase_neuro(dev)
     hh_err, hh = phase_hh_timing(dev)
+    epoch_err, epoch = phase_cable_epoch_timing(dev)
     rows = {"paged_attention": (launches["paged_attention"], err, timing),
             "flash_attention": (train_launches["flash_attention"], flash_err,
                                 flash),
             "ssd_scan": (ssm_launches["ssd_scan"], ssd_err, ssd),
             "hh_step": (hh_launches, hh_err, hh)}
+    # the HH row's redesign: the epoch kernel, one launch an epoch on the
+    # ring's path (hh_step's launches are the epoch hold's cable.step path)
+    extra = {"hh_step": {
+        "epoch_kernel": "cable_epoch", "epoch_launches": epoch_launches,
+        "epoch_ms": epoch["ms"], "epoch_plain_ms": epoch["plain_ms"],
+        "epoch_bound_ms": epoch["bound_ms"],
+        "epoch_bound_by": epoch["bound_by"], "epoch_max_abs_err": epoch_err}}
     emit({"kernels": [{
         "name": name, "route": "cuda", "source": KERNEL_SOURCES[name],
         "replaces": KERNEL_REPLACES[name], "launches": n,
         "max_abs_err": e, "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-        "library_ms": t["library_ms"]} for name, (n, e, t) in rows.items()],
+        "library_ms": t["library_ms"], **extra.get(name, {})}
+        for name, (n, e, t) in rows.items()],
         "seconds": round(time.perf_counter() - t0, 1)})
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

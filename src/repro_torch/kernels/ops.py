@@ -14,13 +14,15 @@ import torch
 
 from repro_torch.kernels.flash_attention import (FlashAttention,
                                                  flash_attention_plain)
-from repro_torch.kernels.hh_neuron import hh_step_cuda, hh_step_plain
+from repro_torch.kernels.hh_neuron import (cable_epoch_cuda,
+                                           cable_epoch_plain, hh_step_cuda,
+                                           hh_step_plain)
 from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                  paged_attention_plain)
 from repro_torch.kernels.ssd_scan import SsdScan, ssd_scan_plain
 
 LAUNCHES: dict[str, int] = {"paged_attention": 0, "flash_attention": 0,
-                            "ssd_scan": 0, "hh_step": 0}
+                            "ssd_scan": 0, "hh_step": 0, "cable_epoch": 0}
 
 
 def reset_launches() -> None:
@@ -91,3 +93,20 @@ def hh_step(v0: torch.Tensor, m: torch.Tensor, h: torch.Tensor,
         LAUNCHES["hh_step"] += 1
         return out
     raise ValueError(f"hh_step has no kernel for device {v0.device}")
+
+
+def cable_epoch(state, cfg, incoming: torch.Tensor, i_stim: torch.Tensor,
+                stim_left: int):
+    """One exchange epoch of cable steps -> ``(new state, spiked [steps, N]
+    bool)``: ``state`` a ``neuro.cable.CellState``, ``cfg`` its
+    ``CellConfig``, ``incoming`` the spikes arriving at each step ``[steps,
+    N]`` fp32; step ``s`` takes ``i_stim`` ``[N]`` while ``s < stim_left``.
+    See ``kernels.hh_neuron``."""
+    if state.v.device.type == "cpu":
+        return cable_epoch_plain(state, cfg, incoming, i_stim, stim_left)
+    if state.v.device.type == "cuda":
+        out = cable_epoch_cuda(state, cfg, incoming, i_stim, stim_left)
+        LAUNCHES["cable_epoch"] += 1
+        return out
+    raise ValueError(f"cable_epoch has no kernel for device "
+                     f"{state.v.device}")

@@ -12,7 +12,10 @@ at dt = 0.025 ms (Arbor's default).  Units: mV, ms, mS/cm².
 device picks the CUDA kernel or its plain version, so the reference's
 ``use_pallas`` has no counterpart.  ``hh_soma_update`` is that plain
 version, the single source of the HH arithmetic (the reference's
-``ref.hh_step_ref`` delegates to it too).
+``ref.hh_step_ref`` delegates to it too).  ``advance`` is the step's
+arithmetic with the soma as an argument: ``step`` passes the kernel's
+entry, the epoch's plain version (``kernels.hh_neuron.cable_epoch_plain``,
+what ``neuro.sim.run`` reaches on the CPU) passes ``hh_soma_update``.
 """
 from __future__ import annotations
 
@@ -150,16 +153,22 @@ def hh_soma_update(v0: torch.Tensor, m: torch.Tensor, h: torch.Tensor,
     return v_n, m_n, h_n, n_n
 
 
-def step(state: CellState, cfg: CellConfig, spike_in: torch.Tensor,
-         i_ext: torch.Tensor) -> tuple[CellState, torch.Tensor]:
-    """One dt step.  spike_in: [n] float (1.0 = a presynaptic spike arrives
-    this step); i_ext: [n] external current into the soma.  Returns
-    (new_state, spiked [n] bool)."""
+def syn_decay(cfg: CellConfig) -> float:
+    """The synapse's decay over one dt step, ``exp(-dt / tau_syn)``, as the
+    reference evaluates it (float32)."""
+    return _f32_exp(-cfg.dt / cfg.tau_syn)
+
+
+def advance(state: CellState, cfg: CellConfig, spike_in: torch.Tensor,
+            i_ext: torch.Tensor, soma) -> tuple[CellState, torch.Tensor]:
+    """One dt step with ``soma`` (``hh_soma_update``'s signature) as the
+    soma update; ``step`` and the epoch's plain version
+    (``kernels.hh_neuron.cable_epoch_plain``) share this arithmetic."""
     v, m, h, n, g = state
     dt = cfg.dt
 
     # synapse: exponential decay + event increments
-    g = g * _f32_exp(-dt / cfg.tau_syn) + cfg.syn_weight * spike_in
+    g = g * syn_decay(cfg) + cfg.syn_weight * spike_in
 
     # cable stencil (explicit): i_axial into each compartment; the ends
     # see their own voltage beyond the edge (the reference's edge padding)
@@ -172,11 +181,21 @@ def step(state: CellState, cfg: CellConfig, spike_in: torch.Tensor,
     dv = (i_axial[:, 1:] + cfg.g_pas * (cfg.e_pas - v_dend)) * (dt / C_M)
     v_dend_new = v_dend + dv
 
-    # HH soma (compartment 0): the kernel on a card, the plain version here
+    # HH soma (compartment 0)
     v0 = v[:, 0].contiguous()
-    v0n, mn, hn, nn = kops.hh_step(v0, m, h, n, g,
-                                   i_axial[:, 0].contiguous(), dt, i_ext)
+    v0n, mn, hn, nn = soma(v0, m, h, n, g, i_axial[:, 0].contiguous(), dt,
+                           i_ext)
 
     spiked = (v0n >= V_THRESH) & (v0 < V_THRESH)
     v_new = torch.cat([v0n[:, None], v_dend_new], dim=1)
     return CellState(v_new, mn, hn, nn, g), spiked
+
+
+def step(state: CellState, cfg: CellConfig, spike_in: torch.Tensor,
+         i_ext: torch.Tensor) -> tuple[CellState, torch.Tensor]:
+    """One dt step.  spike_in: [n] float (1.0 = a presynaptic spike arrives
+    this step); i_ext: [n] external current into the soma.  Returns
+    (new_state, spiked [n] bool).  The soma goes through
+    ``kernels.ops.hh_step``: the kernel on a card, the plain version
+    here."""
+    return advance(state, cfg, spike_in, i_ext, kops.hh_step)

@@ -4,15 +4,19 @@ Port of ``repro.neuro.sim``.  Arbor advances all cells independently for
 one min-delay window, then exchanges the generated spikes with a global
 MPI_Allgather (§6.2.1 of the paper).  Here, on one device:
 
-  local cell update   -> a Python loop over the epoch's dt steps, each a
-                         ``cable.step`` (the HH kernel on a card)
+  local cell update   -> one ``kernels.ops.cable_epoch`` call an epoch:
+                         on a card one launch of the epoch kernel, every
+                         cell through all the epoch's dt steps with its
+                         state on chip (the reference's inner
+                         ``lax.scan``); on the CPU its plain version, a
+                         loop of the cable step
   spike exchange      -> the epoch's int8 spike matrix indexed by each
                          cell's presynaptic source
   axonal delay        -> the exchange epoch length (spikes generated in
                          epoch k are applied in epoch k+1)
 
-Epochs and steps are Python loops over device tensors (the reference's two
-``lax.scan``s).  Nothing is read back to the host inside them: the spike
+Epochs are a Python loop over device tensors (the reference's outer
+``lax.scan``).  Nothing is read back to the host inside it: the spike
 counts accumulate on the device and the epochs' wavefronts are stacked
 there and read once at the end.  The sharded form (cells split over a
 mesh, ``all_gather`` of the spike matrix, ``pmax`` of the front) waits for
@@ -25,6 +29,7 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.kernels import ops as kops
 from repro_torch.neuro import cable
 from repro_torch.neuro.ring import RingConfig, is_ring_head, source_of
 from repro_torch.serve.engine import resolve_device
@@ -51,15 +56,14 @@ def run(cfg: RingConfig, state: cable.CellState, device: torch.device
     ids = torch.arange(n, dtype=torch.int32, device=device)
     no_front = torch.full_like(ids, -1)
     i_stim = is_ring_head(cfg, device).float() * cfg.stim_current
-    i_rest = torch.zeros(n, dtype=torch.float32, device=device)
     incoming = torch.zeros((steps, n), dtype=torch.float32, device=device)
-    spiked = torch.empty((steps, n), dtype=torch.bool, device=device)
     counts = torch.zeros(n, dtype=torch.int32, device=device)
     fronts = []
     for epoch in range(cfg.n_epochs):
-        for s in range(steps):
-            i_ext = i_stim if epoch * steps + s < stim_steps else i_rest
-            state, spiked[s] = cable.step(state, cfg.cell, incoming[s], i_ext)
+        # the epoch's steps that still take the stimulus
+        stim_left = min(max(stim_steps - epoch * steps, 0), steps)
+        state, spiked = kops.cable_epoch(state, cfg.cell, incoming, i_stim,
+                                         stim_left)
         # spikes travel as int8 (the paper's MPI_Allgather moves compact
         # spike records too); each cell takes its source's column
         incoming = spiked.to(torch.int8)[:, sources].float()

@@ -12,8 +12,9 @@ an unwritten slot shows.
 This holds each kernel's indexing, masking, online softmax and merge to
 its plain version before it ever runs on a GPU: the paged-attention kernel,
 the flash-attention kernel (output and log-sum-exp), the SSD scan kernel
-(output and final state) and the HH soma kernel (its grid-stride loop and
-``_vtrap``'s limit).  It says nothing of what ``nvcc``
+(output and final state), the HH soma kernel (its grid-stride loop and
+``_vtrap``'s limit) and the cable epoch kernel (every compartment count
+the repo's configs use, spikes exact over 200 steps).  It says nothing of what ``nvcc``
 accepts, of timing, or of the memory model (the stand-in is sequentially
 consistent).  Skips where no C++20 compiler is found.
 """
@@ -30,7 +31,8 @@ from repro_torch.kernels.build import CSRC
 from repro_torch.kernels.flash_attention import (flash_attention_plain,
                                                  flash_design,
                                                  logsumexp_plain)
-from repro_torch.kernels.hh_neuron import hh_step_plain
+from repro_torch.kernels.hh_neuron import cable_epoch_plain, hh_step_plain
+from repro_torch.neuro.cable import C_M, CellConfig, CellState, syn_decay
 from repro_torch.kernels.paged_attention import paged_attention_plain
 from repro_torch.kernels.ssd_scan import (ssd_design, ssd_scan_plain,
                                           ssd_workspace_elements)
@@ -702,10 +704,15 @@ def test_emulated_ssd_kernel_refuses_what_it_does_not_take(emulated_ssd):
 
 
 @pytest.fixture(scope="module")
-def emulated_hh(tmp_path_factory):
-    """The HH soma kernel source built for the CPU stand-in."""
-    fn = _build_emulated("hh_neuron", tmp_path_factory.mktemp(
-        "emulated_hh")).hh_step_launch
+def emulated_hh_lib(tmp_path_factory):
+    """The HH source (both kernels) built for the CPU stand-in."""
+    return _build_emulated("hh_neuron", tmp_path_factory.mktemp(
+        "emulated_hh"))
+
+
+@pytest.fixture(scope="module")
+def emulated_hh(emulated_hh_lib):
+    fn = emulated_hh_lib.hh_step_launch
     fn.argtypes = ([ctypes.c_void_p] * 11
                    + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
                       ctypes.c_void_p])
@@ -760,3 +767,101 @@ def test_emulated_hh_kernel_at_the_vtrap_limits(emulated_hh):
 def test_emulated_hh_kernel_refuses_no_cells(emulated_hh):
     z = torch.zeros(4)
     assert emulated_hh(*[z.data_ptr()] * 11, 0, 0.025, 0, None) != 0
+
+
+# ------------------------------------------------------------- cable epoch
+
+
+@pytest.fixture(scope="module")
+def emulated_epoch(emulated_hh_lib):
+    fn = emulated_hh_lib.cable_epoch_launch
+    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
+                   + [ctypes.c_float] * 7 + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _epoch_launch(fn, state, cfg, incoming, i_stim, stim_left, max_blocks,
+                  compartments=None):
+    """The C entry point called as ``cable_epoch_cuda`` calls it, on CPU
+    tensors; outputs start as NaN (spiked as 2) so an unwritten one
+    shows."""
+    outs = [torch.full_like(t, float("nan")) for t in state]
+    spiked = torch.full(incoming.shape, 2, dtype=torch.uint8)
+    cells, comps = state.v.shape
+    rc = fn(*(t.data_ptr() for t in (*state, incoming, i_stim, *outs,
+                                     spiked)),
+            cells, comps if compartments is None else compartments,
+            incoming.shape[0], stim_left, cfg.dt, cfg.dt / C_M, cfg.g_axial,
+            cfg.g_pas, cfg.e_pas, syn_decay(cfg), cfg.syn_weight, max_blocks,
+            None)
+    return rc, CellState(*outs), spiked
+
+
+def _epoch_problem(cells, comps, steps, seed):
+    """A state away from rest, incoming spikes at 2% of (step, cell), and
+    the stimulus into every third cell, cut halfway through the epoch."""
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32)  # noqa: E731
+    state = CellState(f32(rng.uniform(-75, -50, (cells, comps))),
+                      f32(rng.uniform(0.02, 0.1, cells)),
+                      f32(rng.uniform(0.5, 0.7, cells)),
+                      f32(rng.uniform(0.3, 0.4, cells)),
+                      f32(rng.uniform(0, 2, cells)))
+    incoming = f32(rng.uniform(size=(steps, cells)) < 0.02)
+    i_stim = f32(rng.uniform(10, 25, cells) * (np.arange(cells) % 3 == 0))
+    return state, incoming, i_stim, (steps + 1) // 2
+
+
+# (cells, compartments, max_blocks) with 128-thread blocks: one cell, a
+# tail below one block, a ragged tail over a full grid (300 = 2 x 128 +
+# 44), and a grid cut to one block so the grid-stride loop walks 3 times
+EPOCH_CASES = [(1, 2, 0), (37, 4, 0), (300, 8, 0), (300, 32, 1),
+               (130, 32, 0)]
+# The soma's exp comes from the C library here and from PyTorch's
+# vectorised exp in the plain version (a few ulp apart), and the plain
+# version may raise n to the 4th through pow: after one step the state
+# agrees to the soma's 3e-5; over 200 steps an ulp is amplified through
+# the spike's upstroke, so the state is held to the ring runs' 1e-3 mV.
+EPOCH_TOL = {1: 3e-5, 200: 1e-3}
+
+
+@pytest.mark.parametrize("steps", [1, 200])
+@pytest.mark.parametrize("case", EPOCH_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_emulated_cable_epoch_matches_plain(emulated_epoch, case, steps):
+    """Every cell and step written; the same cells spike at every step as
+    in the plain version, the final state within ``EPOCH_TOL``."""
+    cells, comps, max_blocks = case
+    cfg = CellConfig(n_compartments=comps)
+    state, incoming, i_stim, stim_left = _epoch_problem(
+        cells, comps, steps, seed=cells * comps + steps)
+    rc, got, spiked = _epoch_launch(emulated_epoch, state, cfg, incoming,
+                                    i_stim, stim_left, max_blocks)
+    assert rc == 0
+    want, want_spiked = cable_epoch_plain(state, cfg, incoming, i_stim,
+                                          stim_left)
+    assert int(spiked.max()) <= 1
+    assert torch.equal(spiked.bool(), want_spiked)
+    if steps == 200:
+        assert bool(want_spiked.any())     # the case reaches a spike
+    for name, a, b in zip(CellState._fields, got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=EPOCH_TOL[steps],
+                                   msg=name)
+
+
+def test_emulated_cable_epoch_refuses_what_it_does_not_take(emulated_epoch):
+    """Compartment counts without an instantiation, no steps, no cells."""
+    cfg = CellConfig(n_compartments=4)
+    state, incoming, i_stim, _ = _epoch_problem(8, 4, 3, seed=1)
+    for comps in (1, 3, 5, 128):
+        rc, _, _ = _epoch_launch(emulated_epoch, state, cfg, incoming,
+                                 i_stim, 0, 0, compartments=comps)
+        assert rc != 0, comps
+    rc, _, _ = _epoch_launch(emulated_epoch, state, cfg, incoming[:0],
+                             i_stim, 0, 0)
+    assert rc != 0
+    empty = CellState(*(t[:0] for t in state))
+    rc, _, _ = _epoch_launch(emulated_epoch, empty, cfg, incoming[:, :0],
+                             i_stim[:0], 0, 0)
+    assert rc != 0

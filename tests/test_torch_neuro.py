@@ -12,6 +12,11 @@ reference.
 * ``kernels.ops.hh_step`` on the CPU takes the plain version and counts
   nothing; the CUDA wrapper refuses what its kernel does not take; with a
   card (``cuda`` marker) the kernel against the plain version.
+* One exchange epoch: ``kernels.ops.cable_epoch`` on the CPU against the
+  reference's ``lax.scan`` of its ``cable.step`` (spikes exact, state
+  within 3e-5); its plain version equal, bit for bit, to stepping
+  ``cable.step``; the epoch wrapper's refusals; with a card the epoch
+  kernel against its plain version, and ``simulate`` through it.
 
 Inputs are drawn from seeded numpy inside each test and handed to both
 frameworks.
@@ -21,7 +26,9 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.hh_neuron import hh_step_cuda, hh_step_plain
+from repro_torch.kernels.hh_neuron import (cable_epoch_cuda,
+                                           cable_epoch_plain, hh_step_cuda,
+                                           hh_step_plain)
 from repro_torch.neuro import cable, ring, sim
 
 TOL = 3e-5          # tests/test_kernels.py's HH tolerance
@@ -246,7 +253,7 @@ def test_ops_dispatch_cpu_takes_plain_and_counts_nothing():
     want = hh_step_plain(*args, dt=0.025)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert ops.LAUNCHES == {"paged_attention": 0, "flash_attention": 0,
-                            "ssd_scan": 0, "hh_step": 0}
+                            "ssd_scan": 0, "hh_step": 0, "cable_epoch": 0}
 
 
 _BAD = {
@@ -303,16 +310,178 @@ def test_cuda_kernel_matches_plain(cuda):
 
 @pytest.mark.cuda
 def test_cuda_simulate_matches_plain(cuda, monkeypatch):
-    """A ring through the kernel against the same ring with the plain
-    version on the card: spike counts and wavefronts exact."""
+    """A ring through the epoch kernel (one launch an epoch, no soma
+    kernel launch) against the same ring with the plain version on the
+    card: spike counts and wavefronts exact."""
     cfg = ring.RingConfig(n_cells=1024, n_rings=8, t_end_ms=30.0,
                           cell=cable.CellConfig(n_compartments=8))
     ops.reset_launches()
     got = sim.simulate(cfg, device=cuda)
-    assert ops.LAUNCHES["hh_step"] == 2 * cfg.n_epochs * cfg.delay_steps
-    monkeypatch.setattr(ops, "hh_step", lambda v0, m, h, n, g, iax, dt, iext:
-                        hh_step_plain(v0, m, h, n, g, iax, iext, dt=dt))
+    assert ops.LAUNCHES["cable_epoch"] == 2 * cfg.n_epochs
+    assert ops.LAUNCHES["hh_step"] == 0
+    monkeypatch.setattr(ops, "cable_epoch", cable_epoch_plain)
     want = sim.simulate(cfg, device=cuda)
+    assert ops.LAUNCHES["cable_epoch"] == 2 * cfg.n_epochs
     assert torch.equal(got.spike_counts, want.spike_counts)
     assert torch.equal(got.wavefront, want.wavefront)
     assert got.total_spikes == want.total_spikes > 0
+
+
+# ------------------------------------------------------------ epoch kernel
+
+
+def _epoch_inputs(n, c, steps, seed):
+    """A state away from rest, spikes arriving at 2% of (step, cell) from
+    a third of the way into the epoch, and the stimulus into every fourth
+    cell: numpy arrays, for both frameworks."""
+    rng = np.random.default_rng(seed)
+    state = [rng.uniform(-75, -50, (n, c)), rng.uniform(0.02, 0.1, n),
+             rng.uniform(0.5, 0.7, n), rng.uniform(0.3, 0.4, n),
+             rng.uniform(0, 2, n)]
+    incoming = rng.uniform(size=(steps, n)) < 0.02
+    incoming[:steps // 3] = False
+    i_stim = rng.uniform(10, 25, n) * (np.arange(n) % 4 == 0)
+    return ([a.astype(np.float32) for a in state],
+            incoming.astype(np.float32), i_stim.astype(np.float32))
+
+
+@pytest.mark.parametrize("stim_left", [0, 77, 200])
+def test_cable_epoch_matches_reference_scan(jref, stim_left):
+    """``kops.cable_epoch`` on the CPU over one 200-step epoch (C 4, 32
+    cells) against the reference's ``lax.scan`` of its ``cable.step`` over
+    the same inputs, the stimulus cut at ``stim_left`` as ``_epoch_fn``
+    cuts it: the same cells spike at every step, the state within 3e-5."""
+    import jax
+    import jax.numpy as jnp
+    rc = jref["cable"]
+    n, c, steps = 32, 4, 200
+    arrays, incoming, i_stim = _epoch_inputs(n, c, steps, seed=stim_left)
+    cfg, rcfg = (cable.CellConfig(n_compartments=c),
+                 rc.CellConfig(n_compartments=c))
+
+    def substep(st, inp):
+        s, spikes_in = inp
+        i_ext = jnp.where(s < stim_left, jnp.asarray(i_stim), 0.0)
+        return rc.step(st, rcfg, spikes_in, i_ext.astype(jnp.float32))
+
+    ref_state0 = rc.CellState(*(jnp.asarray(a) for a in arrays))
+    ref_state, ref_spiked = jax.lax.scan(
+        substep, ref_state0, (jnp.arange(steps), jnp.asarray(incoming)))
+    ops.reset_launches()
+    state, spiked = ops.cable_epoch(
+        cable.state_from_arrays(arrays), cfg, torch.from_numpy(incoming),
+        torch.from_numpy(i_stim), stim_left)
+    assert not any(ops.LAUNCHES.values())
+    assert spiked.dtype == torch.bool and spiked.shape == (steps, n)
+    assert np.array_equal(spiked.numpy(), np.asarray(ref_spiked))
+    assert bool(spiked.any())
+    for name, a, b in zip(cable.CellState._fields, state, ref_state):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=TOL,
+                                   atol=TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("n,c,steps,stim_left",
+                         [(1, 2, 1, 1), (9, 4, 37, 20), (16, 32, 200, 120),
+                          (5, 8, 60, -3), (5, 8, 60, 500)])
+def test_cable_epoch_plain_equals_stepping_cable_step(n, c, steps,
+                                                      stim_left):
+    """The epoch's plain version is the loop of ``cable.step`` that
+    ``sim.run`` made before it, bit for bit: state and every step's
+    spikes."""
+    arrays, incoming, i_stim = _epoch_inputs(n, c, steps, seed=n + steps)
+    cfg = cable.CellConfig(n_compartments=c)
+    got, got_spiked = cable_epoch_plain(
+        cable.state_from_arrays(arrays), cfg, torch.from_numpy(incoming),
+        torch.from_numpy(i_stim), stim_left)
+    state = cable.state_from_arrays(arrays)
+    i_stim_t, i_rest = torch.from_numpy(i_stim), torch.zeros(n)
+    for s in range(steps):
+        state, spiked = cable.step(state, cfg, torch.from_numpy(incoming[s]),
+                                   i_stim_t if s < stim_left else i_rest)
+        assert torch.equal(got_spiked[s], spiked), s
+    for name, a, b in zip(cable.CellState._fields, got, state):
+        assert torch.equal(a, b), name
+
+
+_BAD_EPOCH = {
+    # name: (change of (state, incoming, i_stim), message)
+    "cpu": (lambda st, inc, ist: (st, inc, ist), "CUDA device"),
+    "compartments_3": (lambda st, inc, ist: (
+        st._replace(v=st.v[:, :3].contiguous()), inc, ist), "compartments"),
+    "compartments_128": (lambda st, inc, ist: (
+        st._replace(v=st.v.repeat(1, 32)), inc, ist), "compartments"),
+    "dtype": (lambda st, inc, ist: (st._replace(m=st.m.double()), inc, ist),
+              "float32"),
+    "incoming_dtype": (lambda st, inc, ist: (st, inc.bool(), ist),
+                       "float32"),
+    "v_rank": (lambda st, inc, ist: (st._replace(v=st.v[:, 0].contiguous()),
+                                     inc, ist), r"\[N, C\]"),
+    "length": (lambda st, inc, ist: (st._replace(h=st.h[:-1]), inc, ist),
+               r"\[N\]"),
+    "i_stim_length": (lambda st, inc, ist: (st, inc, ist[1:]), r"\[N\]"),
+    "incoming_cells": (lambda st, inc, ist: (st, inc[:, 1:].contiguous(),
+                                             ist), "incoming"),
+    "incoming_rank": (lambda st, inc, ist: (st, inc[0], ist), "incoming"),
+    "no_steps": (lambda st, inc, ist: (st, inc[:0], ist), "incoming"),
+    "contiguous": (lambda st, inc, ist: (
+        st._replace(v=st.v.t().contiguous().t()), inc, ist), "contiguous"),
+    "empty": (lambda st, inc, ist: (
+        cable.CellState(st.v[:0], *(t[:0] for t in st[1:])), inc[:, :0],
+        ist[:0]), "cells"),
+}
+
+
+@pytest.mark.parametrize("bad", sorted(_BAD_EPOCH))
+def test_cable_epoch_wrapper_rejects_bad_arguments(bad):
+    """The epoch wrapper raises on what its kernel does not take (a
+    compartment count without an instantiation, a type, shape or layout,
+    a CPU tensor), before any build or launch."""
+    change, msg = _BAD_EPOCH[bad]
+    arrays, incoming, i_stim = _epoch_inputs(6, 4, 5, seed=2)
+    args = change(cable.state_from_arrays(arrays),
+                  torch.from_numpy(incoming), torch.from_numpy(i_stim))
+    with pytest.raises(ValueError, match=msg):
+        cable_epoch_cuda(args[0], cable.CellConfig(n_compartments=4),
+                         args[1], args[2], 3)
+
+
+def test_ops_cable_epoch_on_the_cpu_takes_plain_and_counts_nothing():
+    arrays, incoming, i_stim = _epoch_inputs(10, 8, 30, seed=4)
+    cfg = cable.CellConfig(n_compartments=8)
+    ops.reset_launches()
+    got = ops.cable_epoch(cable.state_from_arrays(arrays), cfg,
+                          torch.from_numpy(incoming),
+                          torch.from_numpy(i_stim), 12)
+    want = cable_epoch_plain(cable.state_from_arrays(arrays), cfg,
+                             torch.from_numpy(incoming),
+                             torch.from_numpy(i_stim), 12)
+    assert all(torch.equal(a, b) for a, b in zip(got[0], want[0]))
+    assert torch.equal(got[1], want[1])
+    assert not any(ops.LAUNCHES.values())
+
+
+@pytest.mark.cuda
+def test_cuda_cable_epoch_matches_plain(cuda):
+    """The epoch kernel against its plain version on the card, each
+    compartment count the repo's configs use, the ring's 131,072 cells:
+    spikes exact, the state within the ring runs' 1e-3 mV; one launch
+    counted per call and the inputs left as they were."""
+    cases = [(7, 2, 200, 100), (1000, 4, 37, 37), (4096, 8, 200, 0),
+             (131072, 32, 200, 120), (333, 16, 1, 1), (256, 64, 50, 25)]
+    ops.reset_launches()
+    for i, (n, c, steps, stim_left) in enumerate(cases):
+        arrays, incoming, i_stim = _epoch_inputs(n, c, steps, seed=50 + i)
+        state = cable.state_from_arrays(arrays, cuda)
+        inc, ist = (torch.from_numpy(a).to(cuda) for a in (incoming, i_stim))
+        cfg = cable.CellConfig(n_compartments=c)
+        got, got_spiked = ops.cable_epoch(state, cfg, inc, ist, stim_left)
+        want, want_spiked = cable_epoch_plain(state, cfg, inc, ist,
+                                              stim_left)
+        torch.cuda.synchronize()
+        assert torch.equal(got_spiked, want_spiked), (n, c, steps)
+        for name, a, b in zip(cable.CellState._fields, got, want):
+            torch.testing.assert_close(a, b, rtol=0, atol=STATE_TOL,
+                                       msg=f"{name} {(n, c, steps)}")
+        assert all(np.array_equal(t.cpu().numpy(), a)
+                   for t, a in zip(state, arrays))
+    assert ops.LAUNCHES["cable_epoch"] == len(cases)

@@ -183,7 +183,7 @@ def test_ops_dispatch_cpu_takes_plain_and_counts_nothing():
     assert torch.equal(ops.paged_attention(*args),
                        paged_attention_plain(*args))
     assert ops.LAUNCHES == {"paged_attention": 0, "flash_attention": 0,
-                            "ssd_scan": 0, "hh_step": 0}
+                            "ssd_scan": 0, "hh_step": 0, "cable_epoch": 0}
 
 
 _BAD_ARGS = {
