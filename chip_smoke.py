@@ -11,7 +11,13 @@ non-zero without printing a result:
 2. kernel       — the paged-attention kernel against its plain PyTorch
                   version on the card, over the CPU tests' geometries and
                   the full-width ones of the dense and GQA archs (f32
-                  tolerance 2e-5, bf16 2e-2).
+                  tolerance 2e-5, bf16 2e-2, and bf16 calls also within
+                  REL_TOL of the plain version in relative norm over the
+                  live rows).  Each full-width case's
+                  design (``paged_design``: tensor cores for bf16 at head
+                  dims 16-128 in steps of 16 with 4 or more rows a kv head,
+                  CUDA cores otherwise) is printed, and both designs must
+                  be covered.
 3. flash_kernel — the flash-attention kernel against its plain version:
                   the ``tests/test_kernels.py`` sweep (S 128-512, f32 and
                   bf16, causal and not), head dims 32-128, a tail S of 100,
@@ -38,14 +44,25 @@ non-zero without printing a result:
                   ``scaled_dot_product_attention`` (a yardstick the port
                   never calls) at the serving run's decode shape, L2
                   flushed before each launch, beside the least time the
-                  card could take (its bound).
-8. profile      — where a serving tick's time goes: host wall time per tick
+                  card could take (its bound: the distinct pages the
+                  lanes read, once each) and the launch floor (a
+                  one-element ``add_`` under the same harness); the design
+                  and the split count it took.
+8. paged_timing — the launch floor; the paged kernel at the tick's geometry
+                  with every lane decoding over 1-64 pages (a line through
+                  the times gives its fixed cost and its cost a page); and
+                  at 16 lanes x 2,048 keys, called as the engine calls it
+                  (a 16-row chunk a lane): deepseek-7b and
+                  deepseek-coder-33b decoding one fresh row a lane and the
+                  latter's full 16-row chunk, each beside its plain
+                  version, SDPA and the bound, with its design and splits.
+9. profile      — where a serving tick's time goes: host wall time per tick
                   against device time per kernel (``torch.profiler``).
-9. train_parity — full-width deepseek-7b cut to 2 layers, seq 256, batch 1:
+10. train_parity — full-width deepseek-7b cut to 2 layers, seq 256, batch 1:
                   the loss and every parameter's gradient through the flash
                   kernel against the same step with the plain version
                   called on the card (relative norm error within 2e-2).
-10. train       — full-width deepseek-7b cut to 8 layers (2.46 B
+11. train       — full-width deepseek-7b cut to 8 layers (2.46 B
                   parameters; AdamW state at 16 bytes per parameter does
                   not fit 30 layers in 80 GB), seq 2048, batch 4, remat
                   full: the first 4 steps of the default schedule (1000
@@ -58,17 +75,17 @@ non-zero without printing a result:
                   Then the same 4 steps from the same seed with the plain
                   version on the card: each loss within 1e-3 relative of
                   the kernel run's.
-11. train_cli   — ``launch/train.py::train`` on the card at ``reduced()``
+12. train_cli   — ``launch/train.py::train`` on the card at ``reduced()``
                   scale: a run cut at a checkpoint and resumed reproduces
                   the uninterrupted run's losses.
-12. flash_timing — flash kernel, plain version and
+13. flash_timing — flash kernel, plain version and
                   ``scaled_dot_product_attention(is_causal=True)`` (a
                   yardstick the port never calls) at the training shape,
                   q, k, v [128, 2048, 128] bf16 causal, L2 flushed before
                   each launch, beside the flops bound; the design it took,
                   and its registers and spills from the ptxas report (no
                   tensor-core instantiation may spill).
-13. ssd_kernel  — the SSD scan kernel against its plain version, y and the
+14. ssd_kernel  — the SSD scan kernel against its plain version, y and the
                   final state: the ``tests/test_kernels.py`` sweep (S
                   64-256, chunks 16-64, G 1 and 2), the full-width calls of
                   mamba2 and zamba2 (H 80, P 64, N 128 and 64, chunk 256,
@@ -79,7 +96,7 @@ non-zero without printing a result:
                   bf16 at P, N multiples of 16 and chunks of 64-256,
                   scalar otherwise) is printed, and both designs must be
                   covered.
-14. ssm_serve, hybrid_serve — mamba2-2.7b and zamba2-2.7b at full width
+15. ssm_serve, hybrid_serve — mamba2-2.7b and zamba2-2.7b at full width
                   and depth (seeded bf16 weights) through the contiguous
                   ``ServeEngine``: 4 requests of 32-64 prompt tokens, 16
                   new tokens each, one sampled.  Then the prefill check, at
@@ -89,11 +106,11 @@ non-zero without printing a result:
                   Mamba2 layer, one flash launch a shared block; counts
                   zeroed just before) continued by ``decode_step``, against
                   the prompt stepped one token at a time, in f32.
-15. ssm_train_parity — full width, seq 2048, batch 1, mamba2 cut to 2
+16. ssm_train_parity — full width, seq 2048, batch 1, mamba2 cut to 2
                   layers and zamba2 to one group (6 layers): the loss and
                   every gradient through the kernels against the plain
                   versions on the card.
-16. ssm_train   — mamba2-2.7b at full width and full depth (2.83 B
+17. ssm_train   — mamba2-2.7b at full width and full depth (2.83 B
                   parameters), seq 2048, batch 4, remat full, the first 4
                   steps of the default schedule: the SSD kernel launched
                   twice per layer per step (counts zeroed just before),
@@ -103,7 +120,7 @@ non-zero without printing a result:
                   ``adamw_update`` spans.  Then the same 4 steps from the
                   same seed with the plain versions on the card: each loss
                   within 1e-3 relative of the kernel run's.
-17. ssd_timing  — SSD kernel and plain version at mamba2's training call
+18. ssd_timing  — SSD kernel and plain version at mamba2's training call
                   (x [4, 2048, 80, 64] bf16, chunk 256) and prefill call
                   (x [1, 512, 80, 64]), L2 flushed, beside the bytes bound;
                   the design each took, its workspace bytes and heads a
@@ -112,20 +129,20 @@ non-zero without printing a result:
                   that differ from the plain version's, and each pass's
                   registers and spills from the ptxas report (no pass an
                   arch's call takes may spill).
-18. hh_kernel   — the HH soma kernel against its plain version: the
+19. hh_kernel   — the HH soma kernel against its plain version: the
                   ``tests/test_kernels.py`` sweep (n 7-4096, dt 0.0125 and
                   0.025, its input distributions) plus the ring's 131,072
                   cells and inputs at v = -40 and -55 mV (``_vtrap``'s
                   limits); v, m, h and n within 3e-5, and whether the bits
                   are equal.
-19. cable_epoch_kernel — the epoch kernel (every cell through a whole
+20. cable_epoch_kernel — the epoch kernel (every cell through a whole
                   exchange epoch of cable steps in one launch) against its
                   plain version: C 2, 4, 8 and 32, 7, 1,000 and 131,072
                   cells, 1, 37 and 200 steps, a state away from rest,
                   seeded incoming spikes, the stimulus cut mid-epoch; every
                   step's spikes equal, the state within 1e-3, and whether
                   the bits are equal.
-20. gather      — the paged engine's gather pathway: full-width
+21. gather      — the paged engine's gather pathway: full-width
                   deepseek-7b cut to 4 layers, f32 weights and caches, on
                   the integration workload; ``compare_engines`` ok with
                   ``kernel="gather"`` and ``kernel="paged"``, greedy and
@@ -133,14 +150,14 @@ non-zero without printing a result:
                   kernel's.  Then the serve phase's bf16 trace (full depth)
                   once through ``kernel="gather"``: tokens/s and agreement
                   with the paged run, measured, not checked.
-21. epoch_hold  — one epoch of the 131,072-cell ring (32 compartments,
+22. epoch_hold  — one epoch of the 131,072-cell ring (32 compartments,
                   the stimulus on for its first 120 steps, seeded incoming
                   spikes) stepped three ways: ``cable.step`` on the card
                   (the HH soma kernel once a dt step, counts zeroed just
                   before), the epoch kernel, and the plain version; all
                   three give the same spikes at every step and states
                   within 1e-3.
-22. neuro       — the ring simulation at the repo's production scale
+23. neuro       — the ring simulation at the repo's production scale
                   (``benchmarks/ring_podscale.py``: 131,072 cells of 32
                   compartments, 200 ms, 5 ms delay, 40 epochs of 200 dt
                   steps) on one card, as Arbor's single ring and as
@@ -152,16 +169,17 @@ non-zero without printing a result:
                   dynamics checked; one epoch (ten runs of it) under
                   ``torch.profiler``.  A small ring on the CPU (plain
                   version) and on the card must give the same spikes.
-23. hh_timing   — the HH kernel and its plain version at the ring's
+24. hh_timing   — the HH kernel and its plain version at the ring's
                   131,072 cells, L2 flushed, median of 50, beside the bytes
                   bound.
-24. cable_epoch_timing — the epoch kernel and its plain version at one
+25. cable_epoch_timing — the epoch kernel and its plain version at one
                   epoch of the ring (131,072 cells x 32 compartments, 200
                   steps), L2 flushed, median of 25, beside the operations
                   bound; each instantiation's registers and spills (none
                   up to C = 32 may spill).
 
-Then the ``kernels`` summary line, the card's name and power limit as
+Then the ``kernels`` summary line (the paged row with its design, launch
+floor and ``paged_timing`` shapes), the card's name and power limit as
 ``nvidia-smi`` reports them, and last ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
@@ -197,7 +215,7 @@ from repro_torch.kernels.hh_neuron import (  # noqa: E402
     hh_step_plain)
 from repro_torch.launch.train import train as train_cli  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
-    paged_attention_cuda, paged_attention_plain)
+    paged_attention_cuda, paged_attention_plain, paged_design, paged_splits)
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
     SsdScan, ssd_design, ssd_scan_backward, ssd_scan_cuda, ssd_scan_plain,
     ssd_workspace_elements)
@@ -220,6 +238,11 @@ SLOTS, BLOCK, CHUNK, MAX_LEN = 4, 16, 16, 1024
 N_REQUESTS, PREFIX, MAX_NEW = 8, 256, 32
 SEED = 0
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# bf16 paged calls: ||kernel - plain|| / ||plain|| over the live rows.  Both
+# round one fp32 result to bf16, so a sound kernel differs only where the
+# two fp32 values straddle a rounding boundary; a mask one key off at 2,048
+# keys, or a split's partial weighted a few percent off, reads above it.
+REL_TOL = 1e-3
 # NVIDIA H100 SXM data sheet: HBM3 rate and dense peaks by operand type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -280,22 +303,29 @@ def paged_case(b, c, kv, g, hd, bs, n_pages, pos, n_new, dtype, seed,
             torch.tensor(n_new, dtype=torch.int32, device=device))
 
 
-def compare(args, tol) -> float:
-    """Kernel vs plain on every lane's valid rows; every row finite.
-    Returns the max abs error over valid rows."""
+def compare(args, tol) -> tuple[float, float]:
+    """Kernel vs plain on every lane's valid rows; every row finite; in bf16
+    also the relative norm error over all valid rows within ``REL_TOL``.
+    Returns the max abs error and the relative norm error."""
     out = paged_attention_cuda(*args)
     ref = paged_attention_plain(*args)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(out.float()).all()), "non-finite kernel output")
-    err = 0.0
+    err, diff_sq, ref_sq = 0.0, 0.0, 0.0
+    what = f"q {tuple(args[0].shape)} {args[0].dtype}"
     for lane, n in enumerate(args[5].tolist()):
         got, want = out[lane, :n].float(), ref[lane, :n].float()
         if n:
             err = max(err, float((got - want).abs().max()))
+            diff_sq += float(((got - want) ** 2).sum())
+            ref_sq += float((want ** 2).sum())
             check(torch.allclose(got, want, rtol=tol, atol=tol),
-                  f"kernel != plain: lane {lane} n_new {n} "
-                  f"q {tuple(args[0].shape)} {args[0].dtype}")
-    return err
+                  f"kernel != plain: lane {lane} n_new {n} {what}")
+    rel = (diff_sq / ref_sq) ** 0.5 if ref_sq else 0.0
+    if args[0].dtype == torch.bfloat16:
+        check(rel <= REL_TOL, f"kernel != plain: relative norm error {rel} "
+              f"> {REL_TOL}, {what}")
+    return err, rel
 
 
 def lane_states(rng, b, c, bs, n_pages):
@@ -335,9 +365,9 @@ def phase_build() -> None:
 
 def phase_kernel(dev) -> dict:
     rng = np.random.default_rng(SEED)
-    n_cases, worst = 0, {}
+    n_cases, worst, worst_rel, designs = 0, {}, {}, {}
     for dtype in (torch.float32, torch.bfloat16):
-        err = 0.0
+        errs = [(0.0, 0.0)]
         # the CPU tests' sweep (b=2, hd=32, 4 pages)
         for kv in (1, 2):
             for g in (1, 2, 4):
@@ -346,7 +376,7 @@ def phase_kernel(dev) -> dict:
                         pos, n_new = lane_states(rng, 2, c, bs, 4)
                         args = paged_case(2, c, kv, g, 32, bs, 4, pos, n_new,
                                           dtype, n_cases, dev)
-                        err = max(err, compare(args, TOL[dtype]))
+                        errs.append(compare(args, TOL[dtype]))
                         n_cases += 1
         # edges: the largest head_dim and block the kernel takes, and a
         # block wider than a warp
@@ -355,21 +385,28 @@ def phase_kernel(dev) -> dict:
             pos, n_new = lane_states(rng, 4, c, bs, 6)
             args = paged_case(4, c, kv, g, hd, bs, 6, pos, n_new, dtype,
                               n_cases, dev)
-            err = max(err, compare(args, TOL[dtype]))
+            errs.append(compare(args, TOL[dtype]))
             n_cases += 1
         # full width, serving geometry: 4 slots, 64 pages of 16
-        for _, kv, g, hd in FULL_WIDTH:
+        for name, kv, g, hd in FULL_WIDTH:
             for c in (1, CHUNK):
                 pos, n_new = lane_states(rng, SLOTS, c, BLOCK, MAX_LEN // BLOCK)
                 args = paged_case(SLOTS, c, kv, g, hd, BLOCK, MAX_LEN // BLOCK,
                                   pos, n_new, dtype, n_cases, dev)
-                err = max(err, compare(args, TOL[dtype]))
+                errs.append(compare(args, TOL[dtype]))
                 n_cases += 1
-        worst[str(dtype).replace("torch.", "")] = err
+                designs[f"{name}/c{c}/{str(dtype)[6:]}"] = paged_design(
+                    dtype, c, g, hd)
+        worst[str(dtype).replace("torch.", "")] = max(e for e, _ in errs)
+        worst_rel[str(dtype).replace("torch.", "")] = max(r for _, r in errs)
+    check(set(designs.values()) == {"mma", "scalar"},
+          f"the full-width cases take one design only: {designs}")
     emit({"phase": "kernel", "cases": n_cases, "max_abs_err": worst,
+          "max_rel_norm_err": worst_rel,
           "tolerance": {"float32": TOL[torch.float32],
                         "bfloat16": TOL[torch.bfloat16]},
-          "full_width": [name for name, *_ in FULL_WIDTH]})
+          "rel_norm_tolerance": {"bfloat16": REL_TOL},
+          "full_width_designs": designs})
     return worst
 
 
@@ -525,6 +562,11 @@ def phase_serve(dev):
     return model, params, replay, recorder.best, launches, paged
 
 
+# the paged-attention kernels' names in a profiler trace
+PAGED_KERNEL_NAMES = ("paged_mma_kernel", "paged_scalar_kernel",
+                      "paged_merge_kernel")
+
+
 def phase_profile(model, params, dev, warm=30, ticks=10) -> None:
     """Where a serving tick's time goes: the serve phase's traffic on a
     fresh engine, ``ticks`` ticks timed on the host clock, then the next
@@ -555,12 +597,15 @@ def phase_profile(model, params, dev, warm=30, ticks=10) -> None:
         torch.cuda.synchronize()
     by_kernel = device_ms_by_kernel(prof)
     device_ms = sum(by_kernel.values()) / ticks
-    paged = sum(v for k, v in by_kernel.items() if "paged_attention" in k)
+    paged_by_name = {name: sum(v for k, v in by_kernel.items() if name in k)
+                     / ticks for name in PAGED_KERNEL_NAMES}
+    paged = sum(paged_by_name.values()) * ticks
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     emit({"phase": "profile", "ticks": ticks, "after_ticks": warm,
           "wall_ms_per_tick": wall_ms, "device_ms_per_tick": device_ms,
           "device_busy_share": device_ms / wall_ms,
           "paged_attention_ms_per_tick": paged / ticks,
+          "paged_attention_kernels_ms_per_tick": paged_by_name,
           "paged_attention_share_of_device": paged / ticks / device_ms,
           "weights_read_bound_ms_per_tick":
               2 * P.count(model.param_specs()) / HBM_BYTES_PER_S * 1e3,
@@ -569,17 +614,23 @@ def phase_profile(model, params, dev, warm=30, ticks=10) -> None:
 
 def bound_ms(q, page_table, pos, n_new, k_pool):
     """The least time for the call, from this run's data: the bytes the
-    function must move (valid K/V rows once, valid q rows once, the whole
-    output once, the table) over HBM rate, or its flops over the peak of
-    its operand type, whichever is larger."""
+    function must move (the K/V rows of the distinct physical pages the
+    lanes visit, once each even where lanes share a page; valid q rows
+    once; the whole output once; the table) over HBM rate, or its flops
+    over the peak of its operand type, whichever is larger."""
     b, c, kv, g, hd = q.shape
-    item = q.element_size()
+    bs, item = k_pool.shape[1], q.element_size()
     bytes_, flops = 0, 0
-    for p, n in zip(pos.tolist(), n_new.tolist()):
+    keys_read = {}          # physical page -> keys of it some lane reads
+    for lane, (p, n) in enumerate(zip(pos.tolist(), n_new.tolist())):
         rows = max(n, 1)
         keys = p + rows
-        bytes_ += 2 * keys * kv * hd * item + rows * kv * g * hd * item
+        for j, page in enumerate(page_table[lane, :-(-keys // bs)].tolist()):
+            keys_read[page] = max(keys_read.get(page, 0),
+                                  min(bs, keys - j * bs))
+        bytes_ += rows * kv * g * hd * item
         flops += sum(4 * hd * kv * g * (p + i + 1) for i in range(rows))
+    bytes_ += 2 * sum(keys_read.values()) * kv * hd * item
     bytes_ += q.numel() * item + page_table.numel() * 4 + 2 * b * 4
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_OPS_PER_S[q.dtype] * 1e3
@@ -639,10 +690,10 @@ def phase_parity_and_timing(eng, best, dev):
     live = [set(page_table[i, :(p + max(n, 1) + bs - 1) // bs].tolist())
             for i, (p, n) in enumerate(zip(pos.tolist(), n_new.tolist()))]
     shared = len(set.intersection(*live))
-    err = compare(args, TOL[q.dtype])
+    err, rel = compare(args, TOL[q.dtype])
     emit({"phase": "parity", "layer": 0, "pos": pos.tolist(),
           "n_new": n_new.tolist(), "pages_shared_by_all_slots": shared,
-          "max_abs_err": err, "tolerance": TOL[q.dtype]})
+          "max_abs_err": err, "rel_norm_err": rel, "tolerance": TOL[q.dtype]})
 
     from torch.nn.functional import scaled_dot_product_attention as sdpa
     qs, ks, vs, mask = sdpa_args(*args[:5])
@@ -658,10 +709,15 @@ def phase_parity_and_timing(eng, best, dev):
     t_plain = time_cold(lambda: paged_attention_plain(*args), dev)
     t_lib = time_cold(lambda: sdpa(qs, ks, vs, attn_mask=mask,
                                    enable_gqa=True), dev)
+    b, c, kv, g, hd = q.shape
     timing = {"phase": "timing", "shape": list(q.shape),
               "dtype": str(q.dtype).replace("torch.", ""),
               "pos": pos.tolist(), "n_new": n_new.tolist(),
+              "design": paged_design(q.dtype, c, g, hd),
+              "splits": paged_splits(b, c, kv, g, hd, bs,
+                                     page_table.shape[1], q.dtype),
               "ms": t_kernel, "plain_ms": t_plain, "library_ms": t_lib,
+              "launch_floor_ms": launch_floor_ms(dev),
               "library": "scaled_dot_product_attention(enable_gqa) on K/V "
                          "pre-gathered through the page table",
               "library_max_abs_err": lib_err,
@@ -670,6 +726,85 @@ def phase_parity_and_timing(eng, best, dev):
               "gpu": nvidia_smi()}
     emit(timing)
     return err, timing
+
+
+# the tick's geometry (4 lanes, 64 pages of 16, kv 32, g 1, hd 128, bf16)
+# with every lane decoding one row over this many pages
+SWEEP_PAGES = (1, 2, 4, 8, 16, 32, 64)
+# long contexts: 16 lanes x 2,048 keys (128 pages of 16), bf16, q a chunk
+# of CHUNK rows a lane as the engine passes it:
+# (arch, kv heads, group, head_dim, fresh rows a lane)
+LONG_LANES, LONG_KEYS = 16, 2048
+LONG_SHAPES = [("deepseek-7b", 32, 1, 128, 1),
+               ("deepseek-coder-33b", 8, 7, 128, 1),
+               ("deepseek-coder-33b", 8, 7, 128, CHUNK)]
+
+
+def launch_floor_ms(dev) -> float:
+    """``time_cold`` of a one-element ``add_``: the least time any launch
+    takes under that harness."""
+    one = torch.zeros(1, device=dev)
+    return time_cold(lambda: one.add_(1.0), dev)
+
+
+def phase_paged_timing(dev) -> dict:
+    """The paged kernel beside its launch floor: a sweep of pages a lane at
+    the tick's geometry (fixed cost against cost a page, by a least-squares
+    line), then the long-context shapes at the engine's chunk: kernel,
+    plain version and SDPA (a yardstick the port never calls) beside the
+    bytes or flops bound."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+    floor = launch_floor_ms(dev)
+    kv, g, hd = 32, 1, 128
+    sweep = []
+    for pages in SWEEP_PAGES:
+        keys = pages * BLOCK
+        args = paged_case(SLOTS, CHUNK, kv, g, hd, BLOCK, MAX_LEN // BLOCK,
+                          [keys - 1] * SLOTS, [1] * SLOTS, torch.bfloat16,
+                          pages, dev)
+        compare(args, TOL[torch.bfloat16])
+        sweep.append({"pages": pages,
+                      "ms": time_cold(lambda: paged_attention_cuda(*args),
+                                      dev),
+                      "bound_ms": bound_ms(args[0], args[3], args[4],
+                                           args[5], args[1])[0]})
+    per_page, fixed = np.polyfit([s["pages"] for s in sweep],
+                                 [s["ms"] for s in sweep], 1)
+    shapes = []
+    c = CHUNK
+    for name, kv, g, hd, n in LONG_SHAPES:
+        args = paged_case(LONG_LANES, c, kv, g, hd, BLOCK, LONG_KEYS // BLOCK,
+                          [LONG_KEYS - n] * LONG_LANES, [n] * LONG_LANES,
+                          torch.bfloat16, SEED, dev)
+        err, rel = compare(args, TOL[torch.bfloat16])
+        q, k_pool, v_pool, page_table, pos, n_new = args
+        bound, bound_by, bytes_, flops = bound_ms(q, page_table, pos, n_new,
+                                                  k_pool)
+        qs, ks, vs, mask = sdpa_args(q, k_pool, v_pool, page_table, pos)
+        t_kernel = time_cold(lambda: paged_attention_cuda(*args), dev)
+        t_plain = time_cold(lambda: paged_attention_plain(*args), dev, n=10)
+        t_lib = time_cold(lambda: sdpa(qs, ks, vs, attn_mask=mask,
+                                       enable_gqa=True), dev)
+        shapes.append({"arch": name, "shape": list(q.shape), "n_new": n,
+                       "keys": LONG_KEYS,
+                       "design": paged_design(q.dtype, c, g, hd),
+                       "splits": paged_splits(LONG_LANES, c, kv, g, hd, BLOCK,
+                                              LONG_KEYS // BLOCK, q.dtype),
+                       "ms": t_kernel, "plain_ms": t_plain,
+                       "library_ms": t_lib, "bound_ms": bound,
+                       "bound_by": bound_by, "bytes": bytes_, "flops": flops,
+                       "bound_share": bound / t_kernel,
+                       "max_abs_err": err, "rel_norm_err": rel})
+        del args, q, k_pool, v_pool, qs, ks, vs
+        torch.cuda.empty_cache()
+    timing = {"phase": "paged_timing", "launch_floor_ms": floor,
+              "sweep": sweep, "sweep_fixed_ms": float(fixed),
+              "sweep_ms_per_page": float(per_page), "shapes": shapes,
+              "library": "scaled_dot_product_attention(enable_gqa) on K/V "
+                         "pre-gathered through the page table",
+              "gpu": nvidia_smi()}
+    emit(timing)
+    return timing
 
 
 # ------------------------------------------------------------ flash kernel
@@ -2126,6 +2261,7 @@ def main() -> int:
     model, params, replay, best, launches, paged = phase_serve(dev)
     err, timing = phase_parity_and_timing(replay, best, dev)
     del replay, best
+    paged_timing = phase_paged_timing(dev)
     phase_profile(model, params, dev)
     phase_gather_serve(model, params, paged, dev)
     del model, params          # free the serving model before training
@@ -2157,7 +2293,15 @@ def main() -> int:
             "hh_step": (hh_launches, hh_err, hh)}
     # the HH row's redesign: the epoch kernel, one launch an epoch on the
     # ring's path (hh_step's launches are the epoch hold's cable.step path)
-    extra = {"hh_step": {
+    extra = {"paged_attention": {
+        "design": timing["design"], "launch_floor_ms": timing["launch_floor_ms"],
+        "sweep_fixed_ms": paged_timing["sweep_fixed_ms"],
+        "sweep_ms_per_page": paged_timing["sweep_ms_per_page"],
+        "paged_timing": [{key: sh[key] for key in (
+            "arch", "shape", "n_new", "design", "splits", "ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by")}
+            for sh in paged_timing["shapes"]]},
+        "hh_step": {
         "epoch_kernel": "cable_epoch", "epoch_launches": epoch_launches,
         "epoch_ms": epoch["ms"], "epoch_plain_ms": epoch["plain_ms"],
         "epoch_bound_ms": epoch["bound_ms"],

@@ -10,6 +10,20 @@ reference's ``paged_attention_ref``: a dense gather through the page table
 and a full fp32 softmax.  ``kernels.ops.paged_attention`` picks between
 the two by the tensors' device.
 
+The kernel is bound by the bytes of K/V it must read.  It splits each
+lane's pages across blocks (``paged_splits`` of them, so the card's SMs
+fill several times over), reads every page once for all of a kv head's
+query rows, and merges the splits' fp32 partials in split order in a second
+launch, through a workspace of ``paged_workspace_elements`` floats that the
+wrapper allocates (none with one split).  It has two designs, picked by
+the arguments before the launch (``paged_design``): bf16 with a head dim
+that is a multiple of 16 up to 128 and at least ``MMA_MIN_ROWS`` query rows
+a kv head (``C * G``) runs its products on the tensor cores (``"mma"``);
+f32, other head dims and fewer rows run as fp32 FMAs on the CUDA cores
+(``"scalar"``).  Nothing is retried on the other design.  Where a tensor-core
+block's live rows fit one warp's 16 (a GQA group decoding one row of the
+engine's chunk), its warps split the keys instead of the rows.
+
 Shapes (the reference's layout):
   q          [B, C, KV, G, hd]  post-RoPE queries, bf16 or f32
   k/v_pool   [num_blocks, block_size, KV, hd]  one layer of the page pool,
@@ -24,12 +38,63 @@ whatever its softmax gives; both finite).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 NEG_INF = -1e30
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+MMA_MIN_ROWS = 4      # query rows a (lane, kv head) needs for the tensor cores
+MMA_MAX_HEAD_DIM = 128
+# the split of a lane's pages (``pages_per_split`` in the kernel source)
+MAX_ROWS = 128        # query rows a block holds
+SCALAR_ACC = 16384    # rows x head_dim of a scalar block's fp32 accumulator
+TARGET_BLOCKS = 1056  # 8 blocks on each of an H100's 132 SMs
+KEYS_PER_ROW = 8      # least keys a split reads per query row
+MAX_PAGES_PER_SPLIT = 1024
+
+
+@functools.cache
+def paged_design(dtype: torch.dtype, c: int, g: int, hd: int) -> str:
+    """The design the kernel takes for q's dtype, chunk, GQA group and head
+    dim: ``"mma"`` (``mma.sync`` on the tensor cores: bf16, hd a multiple
+    of 16 up to 128, at least ``MMA_MIN_ROWS`` rows ``c * g`` a kv head)
+    or ``"scalar"`` (fp32 FMAs on the CUDA cores).  Mirrors
+    ``paged_attention_design`` in ``csrc/paged_attention.cu``."""
+    mma = (dtype == torch.bfloat16 and hd % 16 == 0
+           and 16 <= hd <= MMA_MAX_HEAD_DIM and c * g >= MMA_MIN_ROWS)
+    return "mma" if mma else "scalar"
+
+
+@functools.cache
+def paged_splits(b: int, c: int, kv: int, g: int, hd: int, bs: int,
+                 n_pages: int, dtype: torch.dtype) -> int:
+    """Blocks a lane's pages are split over (the kernel's grid.y): enough
+    that about ``TARGET_BLOCKS`` blocks fill the card, few enough that a
+    split reads at least ``KEYS_PER_ROW`` keys per query row of a block.
+    Mirrors ``paged_attention_splits`` in ``csrc/paged_attention.cu``."""
+    r = c * g
+    rows = min(r, MAX_ROWS if paged_design(dtype, c, g, hd) == "mma"
+               else min(MAX_ROWS, SCALAR_ACC // hd))
+    units = b * kv * -(-r // rows)          # blocks a split, over row groups
+    want = min(-(-TARGET_BLOCKS // units), n_pages)
+    pps = max(-(-n_pages // want), -(-KEYS_PER_ROW * rows // bs),
+              -(-n_pages // 65535))
+    pps = min(pps, MAX_PAGES_PER_SPLIT, n_pages)
+    return -(-n_pages // pps)
+
+
+@functools.cache
+def paged_workspace_elements(b: int, c: int, kv: int, g: int, hd: int,
+                             bs: int, n_pages: int,
+                             dtype: torch.dtype) -> int:
+    """fp32 elements of the workspace a launch needs: each split's partial
+    accumulator ``[B*KV, splits, C*G, hd]`` and its ``(m, l)`` pairs; none
+    with one split.  Equals ``paged_attention_workspace_floats`` in
+    ``csrc/paged_attention.cu``."""
+    n = paged_splits(b, c, kv, g, hd, bs, n_pages, dtype)
+    return 0 if n < 2 else b * kv * n * c * g * (hd + 2)
 
 
 def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
@@ -94,10 +159,31 @@ def _check(q, k_pool, v_pool, page_table, pos, n_new) -> None:
     if min(b, c, kv, g, page_table.shape[1]) < 1:
         raise ValueError(f"empty geometry q={tuple(q.shape)} "
                          f"page_table={tuple(page_table.shape)}")
+    if c * g > 4 * 65535:
+        raise ValueError(f"{c * g} query rows a kv head: the kernel takes at "
+                         f"most {4 * 65535}")
+    if (paged_design(q.dtype, c, g, hd) == "mma"
+            and (q.data_ptr() | k_pool.data_ptr() | v_pool.data_ptr()) % 16):
+        raise ValueError("q, k_pool and v_pool must start on a 16-byte "
+                         "boundary for the tensor-core design")
     for name, t in tensors.items():
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"{name} must be on a CUDA device (with q), "
                              f"got {t.device}")
+
+
+@functools.cache
+def _launcher():
+    """The kernel's C entry point, built on first use, its types set once
+    (the serving tick calls it once a layer)."""
+    from repro_torch.kernels.build import load
+
+    fn = load("paged_attention").paged_attention_launch
+    # pointers and the stream as c_void_p: a bare int would be cut to 32 bits
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def paged_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
@@ -107,22 +193,19 @@ def paged_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     """Launch the CUDA kernel on the current stream (building it on first
     use).  Raises on any argument the kernel does not take and on a launch
     the CUDA runtime refuses; never falls back."""
-    from repro_torch.kernels.build import load
-
     _check(q, k_pool, v_pool, page_table, pos, n_new)
     b, c, kv, g, hd = q.shape
-    lib = load("paged_attention")
-    fn = lib.paged_attention_launch
-    # pointers and the stream as c_void_p: a bare int would be cut to 32 bits
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    bs, n_pages = k_pool.shape[1], page_table.shape[1]
+    fn = _launcher()
     out = torch.empty_like(q)
+    n_ws = paged_workspace_elements(b, c, kv, g, hd, bs, n_pages, q.dtype)
+    ws = (torch.empty(n_ws, dtype=torch.float32, device=q.device) if n_ws
+          else None)
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                 page_table.data_ptr(), pos.data_ptr(), n_new.data_ptr(),
-                out.data_ptr(), b, c, kv, g, hd, k_pool.shape[1],
-                page_table.shape[1], hd ** -0.5, _DTYPE_CODES[q.dtype],
+                out.data_ptr(), None if ws is None else ws.data_ptr(), b, c,
+                kv, g, hd, bs, n_pages, hd ** -0.5, _DTYPE_CODES[q.dtype],
                 torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: "

@@ -21,9 +21,14 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.paged_attention import (paged_attention_cuda,
-                                                 paged_attention_plain)
+                                                 paged_attention_plain,
+                                                 paged_design, paged_splits)
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# bf16 on the card: ||kernel - plain|| / ||plain|| over a call's live rows
+# (both round one fp32 result to bf16; a wrong mask or merge weight reads
+# well above it)
+REL_TOL = 1e-3
 
 
 def _case(b, c, kv, g, hd, bs, n_pages, num_blocks, pos, n_new, seed=0):
@@ -327,12 +332,10 @@ def cuda():
     return torch.device("cuda", torch.cuda.current_device())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_kernel_matches_plain(cuda, dtype):
-    """The hand-written kernel against its plain version, on the card,
-    over the sweep above plus wide pages and head dims that are not
-    multiples of 32; rows past n_new come out finite."""
+def _card_cases():
+    """The sweep above, wide pages and head dims that are not multiples of
+    32, and long lanes whose pages split across blocks (GQA chunks and
+    decode rows)."""
     cases = []
     for kv in (1, 2):
         for g in (1, 2, 4):
@@ -345,13 +348,60 @@ def test_cuda_kernel_matches_plain(cuda, dtype):
         pos = [int(rng.integers(0, 4 * bs - max(int(n), 1) + 1))
                for n in n_new]
         cases.append(_case(3, 5, 2, 3, hd, bs, 4, 14, pos, n_new, seed=hd))
+    for c, g, hd in ((1, 1, 128), (1, 7, 128), (16, 7, 128), (4, 4, 64),
+                     (16, 1, 80)):
+        cases.append(_case(3, c, 2, g, hd, 16, 64, 200, [1000, 3, 500],
+                           [c, 0, 1], seed=c * g + hd))
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernel_matches_plain(cuda, dtype):
+    """The hand-written kernel against its plain version, on the card,
+    over ``_card_cases``; rows past n_new come out as zeros.  f32 takes the
+    scalar design throughout; bf16 takes both, as ``paged_design`` names
+    them, and some lanes split their pages across blocks."""
+    cases = _card_cases()
     ops.reset_launches()
+    designs, splits = set(), set()
     for case in cases:
         args = _torch(case, dtype, cuda)
+        b, c, kv, g, hd = args[0].shape
+        designs.add(paged_design(args[0].dtype, c, g, hd))
+        splits.add(paged_splits(b, c, kv, g, hd, args[1].shape[1],
+                                args[3].shape[1], args[0].dtype) > 1)
         out = ops.paged_attention(*args)
         torch.cuda.synchronize()
         assert torch.isfinite(out.float()).all()
-        _assert_valid_rows(out.float().cpu(),
-                           paged_attention_plain(*args).float().cpu(),
-                           case[5], TOL[dtype])
+        ref = paged_attention_plain(*args).float().cpu()
+        _assert_valid_rows(out.float().cpu(), ref, case[5], TOL[dtype])
+        live = [(out[lane, :n].float().cpu(), ref[lane, :n])
+                for lane, n in enumerate(np.asarray(case[5]).tolist())]
+        diff = sum(float(((a - b) ** 2).sum()) for a, b in live)
+        norm = sum(float((b ** 2).sum()) for _, b in live)
+        if dtype == "bfloat16" and norm:   # a case may have no live row
+            assert (diff / norm) ** 0.5 <= REL_TOL, (c, g, hd)
+        for lane, n in enumerate(np.asarray(case[5]).tolist()):
+            assert (out[lane, max(n, 1):] == 0).all()
     assert ops.LAUNCHES["paged_attention"] == len(cases)
+    assert designs == ({"scalar"} if dtype == "float32"
+                       else {"scalar", "mma"})
+    assert splits == {False, True}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernel_is_deterministic(cuda, dtype):
+    """Two calls on one input give equal bits: the splits' partials are
+    merged in a fixed order (the serving replay and the gather-equals-paged
+    check rely on it)."""
+    for c, g in ((1, 1), (16, 7)):
+        args = _torch(_case(3, c, 2, g, 128, 16, 64, 200, [1000, 3, 500],
+                            [c, 0, 1], seed=5), dtype, cuda)
+        b, c, kv, g, hd = args[0].shape
+        assert paged_splits(b, c, kv, g, hd, 16, 64, args[0].dtype) > 1
+        first = paged_attention_cuda(*args)
+        second = paged_attention_cuda(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
