@@ -177,16 +177,52 @@ non-zero without printing a result:
                   steps), L2 flushed, median of 25, beside the operations
                   bound; each instantiation's registers and spills (none
                   up to C = 32 may spill).
+26. moe_kernel  — (run after kernel) the paged kernel's every-row mode
+                  (``all_rows``, the moe family's) against its plain version
+                  on every row of every lane, dead rows and idle lanes
+                  included: qwen3-moe's (kv 4, group 8, hd 128) and
+                  granite-moe's (kv 8, group 2, hd 64) full-width
+                  geometries, chunks of 1 and 16, f32 and bf16, within the
+                  kernel phase's tolerances; both designs and a lane split
+                  across blocks must be covered.
+27. moe_reference — (run after reference) reduced qwen3-moe's paged step
+                  through the kernel against the same step on the CPU
+                  through the plain version, f32, logits within 1e-3; the
+                  steps hold a decoding lane whose dead rows cross a page
+                  edge, a prefill tail and an idle lane.  The same steps
+                  with the every-row argument dropped must miss that bound.
+28. moe_serve   — (run after gather_serve, the dense model freed)
+                  qwen3-moe-30b-a3b at full width and depth (30.5 B
+                  parameters, seeded bf16 weights) on the serve phase's
+                  trace and settings: one paged launch a layer a tick
+                  (counts zeroed just before), 32 tokens in the vocab for
+                  every request, an untimed replay with equal streams; the
+                  kernel at its widest busy tick in both modes, every row
+                  and live rows, beside each one's bound (``moe_timing``);
+                  a profiled tick split into attention, routing and
+                  dispatch, expert products, combine and the rest.
+29. moe_train_parity — (run after train_parity) reduced granite-moe, seq
+                  256: the loss and every gradient through the flash
+                  kernel against the plain version on the card, held within
+                  2e-2 in f32 and reported in bf16.
+30. moe_train   — (run after train) granite-moe-1b-a400m at full width and
+                  depth, seq 2048, batch 4, remat full, 4 steps of the
+                  default schedule: finite losses and router aux, the flash
+                  kernel launched twice a layer a step (counts zeroed just
+                  before); one more step under ``torch.profiler``.
 
 Then the ``kernels`` summary line (the paged row with its design, launch
-floor and ``paged_timing`` shapes), the card's name and power limit as
-``nvidia-smi`` reports them, and last ``{"ok": true, "device": ...}``.
+floor and ``paged_timing`` shapes; the paged and flash rows also carry the
+moe runs' launches, the paged row the every-row timing), the card's name
+and power limit as ``nvidia-smi`` reports them, and last ``{"ok": true,
+"device": ...}``.
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
 import dataclasses
+import gc
 import json
 import re
 import statistics
@@ -250,7 +286,17 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 FULL_WIDTH = [("deepseek-7b", 32, 1, 128), ("phi3-medium-14b", 10, 4, 128),
               ("deepseek-coder-33b", 8, 7, 128),
               ("granite-moe-1b-a400m", 8, 2, 64), ("zamba2-2.7b", 32, 1, 80),
-              ("phi3-mini-3.8b", 32, 1, 96)]
+              ("phi3-mini-3.8b", 32, 1, 96), ("qwen3-moe-30b-a3b", 4, 8, 128)]
+# the moe family: qwen3 served and granite trained, both at full width and
+# depth; their paged geometries take the every-row mode
+MOE_SERVE_ARCH, MOE_TRAIN_ARCH = "qwen3-moe-30b-a3b", "granite-moe-1b-a400m"
+MOE_GEOMS = [g for g in FULL_WIDTH if g[0] in (MOE_SERVE_ARCH, MOE_TRAIN_ARCH)]
+MOE_SPANS = ("moe_route", "moe_experts", "moe_combine")
+# three lanes of chunk 4 over pages of 8: two prefills, then a decoding
+# lane whose dead rows 7-9 cross its page edge, a prefill tail of 2 and an
+# idle lane in one step
+MOE_REF_STEPS = [([0, 0, 0], [4, 4, 0]), ([4, 4, 0], [2, 4, 0]),
+                 ([6, 8, 0], [1, 2, 0])]
 KERNEL_REPLACES = {
     "paged_attention": "src/repro/kernels/paged_attention.py:102",
     "flash_attention": "src/repro/kernels/flash_attention.py:76",
@@ -303,17 +349,19 @@ def paged_case(b, c, kv, g, hd, bs, n_pages, pos, n_new, dtype, seed,
             torch.tensor(n_new, dtype=torch.int32, device=device))
 
 
-def compare(args, tol) -> tuple[float, float]:
-    """Kernel vs plain on every lane's valid rows; every row finite; in bf16
-    also the relative norm error over all valid rows within ``REL_TOL``.
-    Returns the max abs error and the relative norm error."""
-    out = paged_attention_cuda(*args)
+def compare(args, tol, all_rows=False) -> tuple[float, float]:
+    """Kernel vs plain on every lane's valid rows (with ``all_rows``, on
+    every row of every lane); every row finite; in bf16 also the relative
+    norm error over the rows compared within ``REL_TOL``.  Returns the max
+    abs error and the relative norm error."""
+    out = paged_attention_cuda(*args, all_rows=all_rows)
     ref = paged_attention_plain(*args)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(out.float()).all()), "non-finite kernel output")
     err, diff_sq, ref_sq = 0.0, 0.0, 0.0
-    what = f"q {tuple(args[0].shape)} {args[0].dtype}"
+    what = f"q {tuple(args[0].shape)} {args[0].dtype} all_rows {all_rows}"
     for lane, n in enumerate(args[5].tolist()):
+        n = out.shape[1] if all_rows else n
         got, want = out[lane, :n].float(), ref[lane, :n].float()
         if n:
             err = max(err, float((got - want).abs().max()))
@@ -410,10 +458,45 @@ def phase_kernel(dev) -> dict:
     return worst
 
 
-def phase_reference(dev) -> None:
-    """One model, two devices: the paged step through the CUDA kernel and
-    through the plain version on the CPU, f32 weights and pools."""
-    cfg = reduced(ALL_ARCHS[ARCH])
+def phase_moe_kernel(dev) -> None:
+    """The every-row mode (``all_rows``, the moe family's) against the plain
+    version on every row of every lane, idle lanes and dead rows included:
+    qwen3-moe's and granite-moe's full-width geometries at the serving
+    geometry, a decode chunk of 1 and the engine's 16."""
+    rng = np.random.default_rng(SEED + 1)
+    n_cases, worst, worst_rel, designs = 0, {}, {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        errs = []
+        for name, kv, g, hd in MOE_GEOMS:
+            for c in (1, CHUNK):
+                n_pages = MAX_LEN // BLOCK
+                pos, n_new = lane_states(rng, SLOTS, c, BLOCK, n_pages)
+                args = paged_case(SLOTS, c, kv, g, hd, BLOCK, n_pages, pos,
+                                  n_new, dtype, 1000 + n_cases, dev)
+                errs.append(compare(args, TOL[dtype], all_rows=True))
+                n_cases += 1
+                designs[f"{name}/c{c}/{str(dtype)[6:]}"] = [
+                    paged_design(dtype, c, g, hd),
+                    paged_splits(SLOTS, c, kv, g, hd, BLOCK, n_pages, dtype)]
+        worst[str(dtype)[6:]] = max(e for e, _ in errs)
+        worst_rel[str(dtype)[6:]] = max(r for _, r in errs)
+    check({d for d, _ in designs.values()} == {"mma", "scalar"},
+          f"the every-row cases take one design only: {designs}")
+    check(any(n > 1 for _, n in designs.values()),
+          f"no every-row case splits a lane's pages: {designs}")
+    emit({"phase": "moe_kernel", "cases": n_cases, "all_rows": True,
+          "max_abs_err": worst, "max_rel_norm_err": worst_rel,
+          "tolerance": {"float32": TOL[torch.float32],
+                        "bfloat16": TOL[torch.bfloat16]},
+          "rel_norm_tolerance": {"bfloat16": REL_TOL},
+          "designs_and_splits": designs})
+
+
+def reference_err(cfg, steps, dev) -> float:
+    """Max |logit| difference of the paged decode ``steps`` ((pos, n_new) of
+    three lanes, chunk 4, pages of 8) through the kernel on the card and
+    through the plain version on the CPU: reduced ``cfg``, seeded f32
+    weights and pools."""
     model = build(cfg)
     params = P.tree_map(lambda t: t.float(), model.init_params(
         torch.Generator().manual_seed(SEED), "cpu"))
@@ -422,8 +505,6 @@ def phase_reference(dev) -> None:
     table = torch.tensor([[3, 7, 1, 0], [5, 2, 9, 0], [11, 4, 0, 0]],
                          dtype=torch.int32)
     rng = np.random.default_rng(SEED)
-    steps = [([0, 0, 0], [4, 3, 0]), ([4, 3, 0], [1, 4, 2]),
-             ([5, 7, 2], [1, 1, 4])]
     on = {"cpu": (params, {"paged": pools}),
           "gpu": (P.tree_map(lambda t: t.to(dev), params),
                   {"paged": P.tree_map(lambda t: t.to(dev), pools)})}
@@ -439,9 +520,52 @@ def phase_reference(dev) -> None:
                 torch.tensor(n_new, dtype=torch.int32, device=d),
                 table.to(d)).cpu()
         err = max(err, float((logits["gpu"] - logits["cpu"]).abs().max()))
+    return err
+
+
+def phase_reference(dev) -> None:
+    """One model, two devices: the paged step through the CUDA kernel and
+    through the plain version on the CPU, f32 weights and pools."""
+    cfg = reduced(ALL_ARCHS[ARCH])
+    steps = [([0, 0, 0], [4, 3, 0]), ([4, 3, 0], [1, 4, 2]),
+             ([5, 7, 2], [1, 1, 4])]
+    err = reference_err(cfg, steps, dev)
     check(err < 1e-3, f"GPU paged step vs CPU plain step: max |dlogit| {err}")
     emit({"phase": "reference", "arch": cfg.name, "dtype": "float32",
           "steps": len(steps), "max_abs_logit_err": err, "tolerance": 1e-3})
+
+
+@contextlib.contextmanager
+def live_rows_only():
+    """The model's paged calls lose their every-row argument: the kernel
+    computes each lane's live rows and writes zeros past them, as for the
+    dense family.  The fault the moe_reference phase must see."""
+    saved = ops.paged_attention
+    ops.paged_attention = lambda *args, all_rows=False: saved(*args)
+    try:
+        yield
+    finally:
+        ops.paged_attention = saved
+
+
+def phase_moe_reference(dev) -> None:
+    """Reduced qwen3-moe's paged step through the kernel on the card against
+    the plain version on the CPU, f32: a moe step routes every row of the
+    batch together, so the dead rows must be computed as the plain version
+    computes them.  Without the every-row argument the same steps must
+    miss the bound."""
+    cfg = reduced(ALL_ARCHS[MOE_SERVE_ARCH])
+    err = reference_err(cfg, MOE_REF_STEPS, dev)
+    with live_rows_only():
+        err_live = reference_err(cfg, MOE_REF_STEPS, dev)
+    check(err < 1e-3, f"moe: GPU paged step vs CPU plain step: max |dlogit| "
+                      f"{err}")
+    check(err_live > 1e-3, f"moe: the step without the every-row argument "
+                           f"stays within the bound ({err_live}): the check "
+                           f"cannot see the fault")
+    emit({"phase": "moe_reference", "arch": cfg.name, "dtype": "float32",
+          "steps": len(MOE_REF_STEPS), "max_abs_logit_err": err,
+          "live_rows_only_max_abs_logit_err": err_live, "tolerance": 1e-3})
 
 
 class RecordingModel:
@@ -567,12 +691,17 @@ PAGED_KERNEL_NAMES = ("paged_mma_kernel", "paged_scalar_kernel",
                       "paged_merge_kernel")
 
 
-def phase_profile(model, params, dev, warm=30, ticks=10) -> None:
+def phase_profile(model, params, dev) -> None:
+    emit({"phase": "profile", **serve_profile(model, params, dev)})
+
+
+def serve_profile(model, params, dev, warm=30, ticks=10, spans=()) -> dict:
     """Where a serving tick's time goes: the serve phase's traffic on a
     fresh engine, ``ticks`` ticks timed on the host clock, then the next
-    ``ticks`` under ``torch.profiler`` for device time by kernel.  The
-    device's busy share is the profiled device time per tick over the
-    unprofiled wall time per tick (the profiler inflates wall time)."""
+    ``ticks`` under ``torch.profiler`` for device time by kernel (and
+    under each of ``spans``).  The device's busy share is the profiled
+    device time per tick over the unprofiled wall time per tick (the
+    profiler inflates wall time)."""
     from torch.profiler import ProfilerActivity, profile
     cfg = model.cfg
     rng = np.random.default_rng(SEED)
@@ -601,35 +730,42 @@ def phase_profile(model, params, dev, warm=30, ticks=10) -> None:
                      / ticks for name in PAGED_KERNEL_NAMES}
     paged = sum(paged_by_name.values()) * ticks
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
-    emit({"phase": "profile", "ticks": ticks, "after_ticks": warm,
-          "wall_ms_per_tick": wall_ms, "device_ms_per_tick": device_ms,
-          "device_busy_share": device_ms / wall_ms,
-          "paged_attention_ms_per_tick": paged / ticks,
-          "paged_attention_kernels_ms_per_tick": paged_by_name,
-          "paged_attention_share_of_device": paged / ticks / device_ms,
-          "weights_read_bound_ms_per_tick":
-              2 * P.count(model.param_specs()) / HBM_BYTES_PER_S * 1e3,
-          "top_kernels_ms_per_tick": {k[:60]: v / ticks for k, v in top}})
+    out = {"ticks": ticks, "after_ticks": warm,
+           "wall_ms_per_tick": wall_ms, "device_ms_per_tick": device_ms,
+           "device_busy_share": device_ms / wall_ms,
+           "paged_attention_ms_per_tick": paged / ticks,
+           "paged_attention_kernels_ms_per_tick": paged_by_name,
+           "paged_attention_share_of_device": paged / ticks / device_ms,
+           "weights_read_bound_ms_per_tick":
+               2 * P.count(model.param_specs()) / HBM_BYTES_PER_S * 1e3,
+           "top_kernels_ms_per_tick": {k[:60]: v / ticks for k, v in top}}
+    if spans:
+        out["span_ms_per_tick"] = {k: v / ticks for k, v in
+                                   span_device_ms(prof, spans).items()}
+    return out
 
 
-def bound_ms(q, page_table, pos, n_new, k_pool):
+def bound_ms(q, page_table, pos, n_new, k_pool, all_rows=False):
     """The least time for the call, from this run's data: the bytes the
     function must move (the K/V rows of the distinct physical pages the
-    lanes visit, once each even where lanes share a page; valid q rows
-    once; the whole output once; the table) over HBM rate, or its flops
-    over the peak of its operand type, whichever is larger."""
+    lanes visit, once each even where lanes share a page; the computed q
+    rows once, every row with ``all_rows``; the whole output once; the
+    table) over HBM rate, or its flops over the peak of its operand type,
+    whichever is larger."""
     b, c, kv, g, hd = q.shape
     bs, item = k_pool.shape[1], q.element_size()
+    n_pages = page_table.shape[1]
     bytes_, flops = 0, 0
     keys_read = {}          # physical page -> keys of it some lane reads
     for lane, (p, n) in enumerate(zip(pos.tolist(), n_new.tolist())):
-        rows = max(n, 1)
-        keys = p + rows
+        rows = c if all_rows else max(n, 1)
+        keys = min(p + rows, n_pages * bs)
         for j, page in enumerate(page_table[lane, :-(-keys // bs)].tolist()):
             keys_read[page] = max(keys_read.get(page, 0),
                                   min(bs, keys - j * bs))
         bytes_ += rows * kv * g * hd * item
-        flops += sum(4 * hd * kv * g * (p + i + 1) for i in range(rows))
+        flops += sum(4 * hd * kv * g * min(p + i + 1, n_pages * bs)
+                     for i in range(rows))
     bytes_ += 2 * sum(keys_read.values()) * kv * hd * item
     bytes_ += q.numel() * item + page_table.numel() * 4 + 2 * b * 4
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
@@ -1010,9 +1146,10 @@ def train_setup(cfg, seq, batch, steps, dev):
         model, torch.Generator(device=dev).manual_seed(SEED), dev)
 
 
-def run_steps(step_fn, state, host_batches, dev):
+def run_steps(step_fn, state, host_batches, dev, metrics_out=None):
     """Steps over ``host_batches``, each timed on the host clock from its
-    batch's copy to the card to the host's read of its loss."""
+    batch's copy to the card to the host's read of its loss; each step's
+    scalar metrics appended to ``metrics_out`` when it is given."""
     losses, step_s = [], []
     for host_batch in host_batches:
         t0 = time.perf_counter()
@@ -1021,6 +1158,9 @@ def run_steps(step_fn, state, host_batches, dev):
         state, metrics = step_fn(state, batch)
         losses.append(float(metrics["loss"]))   # the step's host sync
         step_s.append(time.perf_counter() - t0)
+        if metrics_out is not None:
+            metrics_out.append({k: float(v) for k, v in metrics.items()
+                                if v.numel() == 1})
     return state, losses, step_s
 
 
@@ -2234,6 +2374,231 @@ def phase_gather_serve(model, params, paged, dev) -> None:
           "leading_tokens_equal": lead})
 
 
+def phase_moe_serve(dev) -> tuple[dict, dict]:
+    """qwen3-moe-30b-a3b at full width and depth (30.5 B parameters, seeded
+    bf16 weights, whole on the card) through ``PagedServeEngine`` on the
+    serve phase's trace and settings.  Launch counts are zeroed just before
+    the timed run and read just after: one paged-attention launch a layer a
+    tick.  An untimed replay must give the same streams; its widest busy
+    tick feeds the every-row timing (``moe_row_timing``), and a fresh
+    engine's ticks under ``torch.profiler`` split a tick's device time into
+    attention, routing and dispatch, the expert products, the combine and
+    the rest."""
+    cfg = ALL_ARCHS[MOE_SERVE_ARCH]
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = build(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(SEED),
+                               dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in P.leaves(params))
+
+    warm = PagedServeEngine(model, params, slots=2, max_len=64,
+                            block_size=BLOCK, chunk=CHUNK, num_blocks=16,
+                            device=dev)
+    warm.run([Request(rid=0, prompt=list(range(20)), max_new=3)])
+    del warm
+    eng = PagedServeEngine(model, params, slots=SLOTS, max_len=MAX_LEN,
+                           block_size=BLOCK, chunk=CHUNK, device=dev)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    done = eng.run(serve_requests(cfg))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    rep = eng.report()
+    check(rep["served"] == N_REQUESTS, f"moe served {rep['served']}")
+    check(launches["paged_attention"] == rep["decode_steps"] * cfg.n_layers,
+          f"moe: paged_attention launched {launches['paged_attention']} "
+          f"times, expected decode_steps x layers = "
+          f"{rep['decode_steps']} x {cfg.n_layers}")
+    eng.alloc.check()
+    for r in done:
+        check(len(r.out) == MAX_NEW, f"moe request {r.rid}: {len(r.out)} "
+                                     f"tokens")
+        check(all(0 <= t < cfg.padded_vocab for t in r.out),
+              f"moe request {r.rid}: token outside the vocab")
+    streams = {r.rid: r.out for r in done}
+    del eng
+
+    recorder = RecordingModel(model)
+    replay = PagedServeEngine(recorder, params, slots=SLOTS, max_len=MAX_LEN,
+                              block_size=BLOCK, chunk=CHUNK, device=dev)
+    replayed = {r.rid: r.out for r in replay.run(serve_requests(cfg))}
+    check(replayed == streams, "moe: the replay's streams differ from the "
+                               "timed run's")
+    check(recorder.best is not None, "moe: no tick with every slot busy")
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    timing = moe_row_timing(replay, recorder.best, dev)
+    del replay
+    # fewer ticks than the dense profile: a moe tick launches about 3,000
+    # kernels, and the profiler's host side slows with each
+    prof = serve_profile(model, params, dev, warm=20, ticks=2,
+                         spans=MOE_SPANS)
+    spans = prof.pop("span_ms_per_tick")
+    parts = {"attention": prof["paged_attention_ms_per_tick"],
+             "router_and_dispatch": spans["moe_route"],
+             "expert_products": spans["moe_experts"],
+             "combine": spans["moe_combine"]}
+    parts["rest"] = prof["device_ms_per_tick"] - sum(parts.values())
+    emit({"phase": "moe_serve", "arch": cfg.name, "params": n_params,
+          "active_params": cfg.active_param_count(), "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "experts": cfg.n_experts,
+          "top_k": cfg.top_k, "init_s": init_s, "wall_s": wall,
+          "decode_steps": rep["decode_steps"],
+          "ms_per_tick": 1e3 * wall / rep["decode_steps"],
+          "tokens_out_per_s": rep["tokens_out"] / wall,
+          "tokens_processed_per_s":
+              (rep["tokens_out"] + rep["prefill_tokens"]) / wall,
+          "launches": launches, "peak_mem_gb": peak_gb,
+          "prefix_hit_rate": rep["prefix_hit_rate"],
+          "replay_streams_equal": True,
+          "first_tokens": {rid: out[:4] for rid, out in streams.items()},
+          "profile": prof, "device_ms_per_tick_by_part": parts})
+    return launches, timing
+
+
+def moe_row_timing(eng, best, dev) -> dict:
+    """The paged kernel at qwen3-moe's decode geometry (q [4, 16, 4, 8,
+    128] bf16, the widest busy tick of the moe run on its layer-0 pool):
+    every row (the moe path) against the live rows only (the dense path's
+    economy), each beside its bound; the plain version and SDPA compute
+    every row."""
+    _, pos, n_new, page_table = best
+    cfg = eng.model.cfg
+    kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    g = cfg.n_heads // kv
+    k_pool, v_pool = eng.view.k[0], eng.view.v[0]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    q = torch.randn((SLOTS, CHUNK, kv, g, hd), generator=gen,
+                    device=dev).to(k_pool.dtype)
+    args = (q, k_pool, v_pool, page_table, pos, n_new)
+    err, rel = compare(args, TOL[q.dtype], all_rows=True)
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+    qs, ks, vs, mask = sdpa_args(*args[:5])
+    out = {"shape": list(q.shape), "dtype": str(q.dtype)[6:],
+           "pos": pos.tolist(), "n_new": n_new.tolist(),
+           "design": paged_design(q.dtype, CHUNK, g, hd),
+           "splits": paged_splits(SLOTS, CHUNK, kv, g, hd, k_pool.shape[1],
+                                  page_table.shape[1], q.dtype),
+           "max_abs_err": err, "rel_norm_err": rel}
+    for all_rows in (False, True):
+        key = "all_rows" if all_rows else "live_rows"
+        bound, by, _, _ = bound_ms(q, page_table, pos, n_new, k_pool,
+                                   all_rows)
+        out[key] = {"ms": time_cold(lambda: paged_attention_cuda(
+            *args, all_rows=all_rows), dev), "bound_ms": bound,
+            "bound_by": by}
+    out["plain_ms"] = time_cold(lambda: paged_attention_plain(*args), dev)
+    out["library_ms"] = time_cold(lambda: sdpa(qs, ks, vs, attn_mask=mask,
+                                               enable_gqa=True), dev)
+    out["ms"], out["bound_ms"] = (out["all_rows"]["ms"],
+                                  out["all_rows"]["bound_ms"])
+    out["bound_by"] = out["all_rows"]["bound_by"]
+    emit({"phase": "moe_timing", **out, "gpu": nvidia_smi()})
+    return out
+
+
+def phase_moe_train_parity(dev) -> None:
+    """Reduced granite-moe, seq 256, batch 1: the loss and every gradient
+    through the flash kernel against the same step with the plain version
+    on the card.  Held within ``GRAD_TOL`` in f32, where the routing is the
+    same on both sides; in bf16 a route flipped by one ulp of an attention
+    output moves an expert's gradient by about as much as the tolerance
+    (PERF.md), so the bf16 errors are reported, not held."""
+    cfg = reduced(ALL_ARCHS[MOE_TRAIN_ARCH])
+    model = build(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(SEED),
+                               dev)
+    batch = model.sample_batch(ShapeConfig("parity", "train", PARITY_SEQ, 1),
+                               SEED, dev)
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        p = P.tree_map(lambda t: t if t.dtype == torch.float32 else
+                       t.to(dtype), params)
+        ops.reset_launches()
+        loss_k, grads_k = loss_and_grads(model, p, batch)
+        launches = ops.LAUNCHES["flash_attention"]
+        with plain_flash():
+            loss_p, grads_p = loss_and_grads(model, p, batch)
+        torch.cuda.synchronize()
+        check(launches == cfg.n_layers,
+              f"moe: flash_attention launched {launches} times, expected "
+              f"one per layer ({cfg.n_layers})")
+        errs = [rel_norm(a, b) for a, b in zip(grads_k, grads_p)]
+        res[str(dtype)[6:]] = {
+            "loss_kernel": float(loss_k), "loss_plain": float(loss_p),
+            "loss_rel_err": rel_norm(loss_k, loss_p),
+            "grad_max_rel_norm_err": max(errs), "flash_launches": launches,
+            "flash_design": flash_design(dtype, cfg.resolved_head_dim)}
+    f32 = res["float32"]
+    check(f32["loss_rel_err"] <= GRAD_TOL
+          and f32["grad_max_rel_norm_err"] <= GRAD_TOL,
+          f"moe gradients through the kernel vs plain: {f32}")
+    emit({"phase": "moe_train_parity", "arch": cfg.name,
+          "layers": cfg.n_layers, "seq": PARITY_SEQ, "batch": 1,
+          "grad_leaves": len(grads_k), "tolerance": GRAD_TOL,
+          "held": "float32", **res})
+
+
+def phase_moe_train(dev) -> dict:
+    """granite-moe-1b-a400m at full width and depth (1.33 B parameters),
+    seq 2048, batch 4, remat full, the first 4 steps of the default
+    schedule: finite losses and router aux, the flash kernel launched twice
+    a layer a step (counts zeroed just before); one more step under
+    ``torch.profiler`` with the device ms under the moe spans."""
+    cfg = ALL_ARCHS[MOE_TRAIN_ARCH]
+    _, step_fn, batches, fresh = train_setup(cfg, TRAIN_SEQ, TRAIN_BATCH,
+                                             TRAIN_STEPS, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = fresh()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in P.leaves(state.params))
+    ops.reset_launches()
+    metrics = []
+    state, losses, step_s = run_steps(step_fn, state, batches[:TRAIN_STEPS],
+                                      dev, metrics)
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    aux = [m["moe_aux"] for m in metrics]
+    check(all(np.isfinite(losses)), f"moe: non-finite loss {losses}")
+    check(len(aux) == TRAIN_STEPS and all(np.isfinite(aux)),
+          f"moe: router aux {aux}")
+    expected = 2 * cfg.n_layers * TRAIN_STEPS
+    check(launches["flash_attention"] == expected,
+          f"moe: flash_attention launched {launches['flash_attention']} "
+          f"times, expected 2 x layers x steps = {expected}")
+    check(launches["paged_attention"] == 0, "paged attention ran in training")
+    design = flash_design(getattr(torch, cfg.dtype), cfg.resolved_head_dim)
+    check(design == "mma", f"the moe training call took the {design} design")
+    steady_ms = statistics.median(step_s[1:]) * 1e3
+    state, device_ms, by_kind, top, spans = profiled_step(
+        step_fn, state, batches[TRAIN_STEPS], dev,
+        MOE_SPANS + ("adamw_update",))
+    del state
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    emit({"phase": "moe_train", "arch": cfg.name, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "experts": cfg.n_experts,
+          "top_k": cfg.top_k, "params": n_params,
+          "active_params": cfg.active_param_count(), "seq": TRAIN_SEQ,
+          "batch": TRAIN_BATCH, "remat": "full", "init_s": init_s,
+          "losses": losses, "moe_aux": aux,
+          "loss_fell": losses[-1] < losses[0],
+          "step_ms": [1e3 * t for t in step_s],
+          "steady_ms_per_step": steady_ms,
+          "tokens_per_s": tokens / steady_ms * 1e3, "peak_mem_gb": peak_gb,
+          "launches": launches, "flash_design": design,
+          "profile": {"device_ms_per_step": device_ms,
+                      "device_busy_share": device_ms / steady_ms,
+                      "span_ms": spans, "ms_by_kind": by_kind,
+                      "top_kernels_ms": top}})
+    return launches
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2253,10 +2618,12 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build()
     phase_kernel(dev)
+    phase_moe_kernel(dev)
     phase_flash_kernel(dev)
     phase_hh_kernel(dev)
     phase_cable_epoch_kernel(dev)
     phase_reference(dev)
+    phase_moe_reference(dev)
     phase_gather(dev)
     model, params, replay, best, launches, paged = phase_serve(dev)
     err, timing = phase_parity_and_timing(replay, best, dev)
@@ -2264,11 +2631,20 @@ def main() -> int:
     paged_timing = phase_paged_timing(dev)
     phase_profile(model, params, dev)
     phase_gather_serve(model, params, paged, dev)
-    del model, params          # free the serving model before training
+    # free each served model before the next: the engines hold it in
+    # reference cycles, which only the collector breaks
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_serve_launches, moe_timing = phase_moe_serve(dev)
+    gc.collect()
     torch.cuda.empty_cache()
     phase_train_parity(dev)
+    phase_moe_train_parity(dev)
     torch.cuda.empty_cache()
     train_launches, _ = phase_train(dev)
+    torch.cuda.empty_cache()
+    moe_train_launches = phase_moe_train(dev)
     torch.cuda.empty_cache()
     phase_train_cli()
     flash_err, flash = phase_flash_timing(dev)
@@ -2294,6 +2670,10 @@ def main() -> int:
     # the HH row's redesign: the epoch kernel, one launch an epoch on the
     # ring's path (hh_step's launches are the epoch hold's cable.step path)
     extra = {"paged_attention": {
+        "moe_launches": moe_serve_launches["paged_attention"],
+        "moe_all_rows": {key: moe_timing[key] for key in (
+            "shape", "design", "splits", "max_abs_err", "all_rows",
+            "live_rows", "plain_ms", "library_ms")},
         "design": timing["design"], "launch_floor_ms": timing["launch_floor_ms"],
         "sweep_fixed_ms": paged_timing["sweep_fixed_ms"],
         "sweep_ms_per_page": paged_timing["sweep_ms_per_page"],
@@ -2301,6 +2681,8 @@ def main() -> int:
             "arch", "shape", "n_new", "design", "splits", "ms", "plain_ms",
             "library_ms", "bound_ms", "bound_by")}
             for sh in paged_timing["shapes"]]},
+        "flash_attention": {
+        "moe_launches": moe_train_launches["flash_attention"]},
         "hh_step": {
         "epoch_kernel": "cable_epoch", "epoch_launches": epoch_launches,
         "epoch_ms": epoch["ms"], "epoch_plain_ms": epoch["plain_ms"],

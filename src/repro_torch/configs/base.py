@@ -33,9 +33,9 @@ class ModelConfig:
       vlm     — decoder-only with cross-attention blocks every
                 ``cross_every`` layers attending to stubbed patch embeddings
 
-    The port builds the dense, ssm and hybrid families; the other families'
-    fields are kept so every assigned arch is described identically in both
-    packages.
+    The port builds the dense, moe, ssm and hybrid families; the other
+    families' fields are kept so every assigned arch is described
+    identically in both packages.
     """
 
     name: str
@@ -100,6 +100,15 @@ class ModelConfig:
         from repro_torch.models import params as P  # local: avoid a cycle
 
         return P.count(P.param_specs(self))
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: ``top_k`` experts only), as
+        the reference's ``stack.param_count(active_only=True)``."""
+        total = self.param_count()
+        if self.n_experts and self.top_k:
+            expert = 3 * self.d_model * self.d_ff  # gate + up + down
+            total -= self.n_layers * expert * (self.n_experts - self.top_k)
+        return total
 
 
 @dataclass(frozen=True)

@@ -7,7 +7,11 @@
 // the causal chunk mask k_pos <= pos + row / G; an fp32 online softmax; the
 // output cast once.  A lane has at most C fresh rows (n_new is capped at C);
 // rows at or past max(n_new, 1) * G are garbage the caller discards and are
-// written as zeros.  Idle lanes (n_new == 0) still attend page 0.
+// written as zeros.  Idle lanes (n_new == 0) still attend page 0.  With
+// all_rows set (the moe family, whose router takes every row of a chunk
+// together) every one of a lane's C*G rows is computed as the plain version
+// computes it, idle lanes included: row r sees the keys up to pos + r / G,
+// over the pages up to min((pos + C - 1) / bs, n_pages - 1).
 //
 // Bound on the H100: device memory.  A (lane, kv head) must read the K and
 // V rows of its visited pages once, 2 * hd * sizeof(T) bytes a key, and does
@@ -256,8 +260,16 @@ struct Args {
   int pps;              // pages a split
   int n_splits;
   int kt;               // keys a tile (scalar design)
+  int all_rows;         // compute all C chunk rows, not the live ones
   float scale_log2;     // scale * log2(e)
 };
+
+// Chunk positions a lane computes: all C with all_rows, else its live ones
+// (max(n_new, 1), capped at C).  They set both the rows a block computes
+// and the last key it reads: pos + chunk_rows - 1.
+__device__ __forceinline__ int chunk_rows(const Args& a, int b) {
+  return a.all_rows ? a.C : min(max(a.n_new[b], 1), a.C);
+}
 
 // One block's share: (lane b, kv head h, row group, split).
 struct Blk {
@@ -301,7 +313,7 @@ __device__ void zero_rows(const Args& a, const Blk& k, int from) {
 // Reads the lane's pos and n_new and this split's slice of the page table
 // into spt, all issued before any is used.  False when the block has no
 // work: a split past the lane's last page, or a row group past the lane's
-// live rows (whose zeros split 0 writes when it is the lane's only live
+// computed rows (whose zeros split 0 writes when it is the lane's only live
 // split, and the merge otherwise).
 template <typename T>
 __device__ bool block_setup(const Args& a, int* spt, Blk& k) {
@@ -314,19 +326,20 @@ __device__ bool block_setup(const Args& a, int* spt, Blk& k) {
   const int* pt = a.pt + (size_t)k.b * a.n_pages + page0;
   for (int i = threadIdx.x; i < npg; i += blockDim.x) spt[i] = pt[i];
   k.pos = a.pos[k.b];
-  const int n_eff = min(max(a.n_new[k.b], 1), a.C);
+  const int n_eff = chunk_rows(a, k.b);
   __syncthreads();
   k.row0 = rg * a.rows_blk;
   k.rows = min(a.rows_blk, a.R - k.row0);
   k.nlb = max(0, min(k.rows, n_eff * a.G - k.row0));
-  // the lane's last page holding a valid row (the TPU kernel's `last`);
-  // keys past pos + n_eff - 1 are masked for every row
+  // the lane's last page holding a computed row (the TPU kernel's `last`
+  // when only live rows are computed); keys past pos + n_eff - 1 are masked
+  // for every row
   const int last = min((k.pos + n_eff - 1) / a.bs, a.n_pages - 1);
   k.key0 = page0 * a.bs;
   k.key_end = min(min(page0 + a.pps, a.n_pages) * a.bs, k.pos + n_eff);
   k.n_live = min(last / a.pps + 1, a.n_splits);
   if (page0 > last) return false;
-  if (k.nlb == 0) {  // rows all past the live ones: zeros, here or merged
+  if (k.nlb == 0) {  // rows all past the computed ones: zeros, here or merged
     if (k.n_live == 1) zero_rows<T>(a, k, 0);
     return false;
   }
@@ -887,7 +900,7 @@ paged_merge_kernel(Args a) {
   const int lane = threadIdx.x % 32;
   if (r >= a.R) return;
   const int pos = a.pos[k.b];
-  const int n_eff = min(max(a.n_new[k.b], 1), a.C);
+  const int n_eff = chunk_rows(a, k.b);
   const int last = min((pos + n_eff - 1) / a.bs, a.n_pages - 1);
   const int n_live = min(last / a.pps + 1, a.n_splits);
   if (n_live == 1) return;
@@ -1047,15 +1060,17 @@ extern "C" long long paged_attention_workspace_floats(int B, int C, int KV,
 // q [B, C, KV, G, hd], pools [blocks, bs, KV, hd] (dtype: 0 = float32,
 // 1 = bfloat16); page_table [B, n_pages], pos and n_new [B] int32; out like
 // q; ws paged_attention_workspace_floats fp32 (null when that is 0).  The
-// tensor-core design takes q and the pools on 16-byte boundaries.  Returns
-// the cudaError_t of the launch.
+// tensor-core design takes q and the pools on 16-byte boundaries.
+// all_rows: 0 computes a lane's live rows and writes the rest as zeros, 1
+// computes every row.  Returns the cudaError_t of the launch.
 extern "C" int paged_attention_launch(const void* q, const void* k_pool,
                                       const void* v_pool,
                                       const void* page_table, const void* pos,
                                       const void* n_new, void* out, void* ws,
                                       int B, int C, int KV, int G, int hd,
                                       int bs, int n_pages, float scale,
-                                      int dtype, void* stream) {
+                                      int dtype, int all_rows,
+                                      void* stream) {
   const int design = paged_attention_design(dtype, C, G, hd);
   const int pps = pages_per_split(B, C, KV, G, hd, bs, n_pages, design);
   if (pps < 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -1083,6 +1098,7 @@ extern "C" int paged_attention_launch(const void* q, const void* k_pool,
   a.pps = pps;
   a.n_splits = (n_pages + pps - 1) / pps;
   a.kt = 0;
+  a.all_rows = all_rows != 0;
   a.scale_log2 = scale * kLog2e;
   a.ml_off = (long long)B * KV * a.n_splits * a.R * hd;
   if (a.n_splits > 1 && ws == nullptr)

@@ -32,14 +32,19 @@ def reset_launches() -> None:
 
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                     v_pool: torch.Tensor, page_table: torch.Tensor,
-                    pos: torch.Tensor, n_new: torch.Tensor) -> torch.Tensor:
+                    pos: torch.Tensor, n_new: torch.Tensor, *,
+                    all_rows: bool = False) -> torch.Tensor:
     """Chunked decode attention through the page table (the paged serving
-    engine's hot path); see ``kernels.paged_attention`` for the shapes."""
+    engine's hot path); see ``kernels.paged_attention`` for the shapes.
+    ``all_rows`` asks for every row of a lane's chunk, as the plain version
+    computes it (the moe family's); without it the kernel computes only
+    the live rows and writes the others as zeros."""
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pool, v_pool, page_table, pos,
                                      n_new)
     if q.device.type == "cuda":
-        out = paged_attention_cuda(q, k_pool, v_pool, page_table, pos, n_new)
+        out = paged_attention_cuda(q, k_pool, v_pool, page_table, pos, n_new,
+                                   all_rows=all_rows)
         LAUNCHES["paged_attention"] += 1
         return out
     raise ValueError(f"paged_attention has no kernel for device {q.device}")

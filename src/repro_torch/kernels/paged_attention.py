@@ -31,9 +31,13 @@ Shapes (the reference's layout):
   page_table [B, n_pages] int32  physical page per logical block; entries
              past a lane's allocation hold a valid index (0), masked
   pos, n_new [B] int32  rows already cached / fresh rows this call
-Output [B, C, KV, G, hd].  Rows ``>= n_new`` of a lane are garbage the
-caller discards (the kernel writes them as zeros, the plain version as
-whatever its softmax gives; both finite).
+Output [B, C, KV, G, hd].  Row ``r`` of a lane attends the keys up to
+``pos + r`` through the whole table; the plain version computes every row
+so, idle lanes included.  The kernel computes the rows below
+``max(n_new, 1)`` and writes the rest as zeros (the dense family discards
+them), or, with ``all_rows``, every row as the plain version does: a moe
+layer routes all of a chunk's rows together, so there a discarded row
+decides which live rows keep their experts.
 """
 from __future__ import annotations
 
@@ -102,8 +106,10 @@ def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
                           pos: torch.Tensor, n_new: torch.Tensor
                           ) -> torch.Tensor:
     """Plain PyTorch version: gather every table page, mask, full fp32
-    softmax, P·V in fp32, one cast.  Mathematically the kernel's function
-    on every valid row."""
+    softmax, P·V in fp32, one cast; every row of every lane, row ``r``
+    seeing the keys up to ``pos + r`` (the reference's
+    ``paged_attention_ref``).  Mathematically the kernel's function on the
+    rows it computes: the live ones, or all of them with ``all_rows``."""
     b, c, kv, g, hd = q.shape
     bs = k_pool.shape[1]
     n_pages = page_table.shape[1]
@@ -181,18 +187,20 @@ def _launcher():
     fn = load("paged_attention").paged_attention_launch
     # pointers and the stream as c_void_p: a bare int would be cut to 32 bits
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
 def paged_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                          v_pool: torch.Tensor, page_table: torch.Tensor,
-                         pos: torch.Tensor, n_new: torch.Tensor
-                         ) -> torch.Tensor:
+                         pos: torch.Tensor, n_new: torch.Tensor, *,
+                         all_rows: bool = False) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream (building it on first
-    use).  Raises on any argument the kernel does not take and on a launch
-    the CUDA runtime refuses; never falls back."""
+    use): the live rows of each lane, zeros past them, or with
+    ``all_rows`` every row.  Raises on any argument the kernel does not
+    take and on a launch the CUDA runtime refuses; never falls back."""
     _check(q, k_pool, v_pool, page_table, pos, n_new)
     b, c, kv, g, hd = q.shape
     bs, n_pages = k_pool.shape[1], page_table.shape[1]
@@ -206,7 +214,7 @@ def paged_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                 page_table.data_ptr(), pos.data_ptr(), n_new.data_ptr(),
                 out.data_ptr(), None if ws is None else ws.data_ptr(), b, c,
                 kv, g, hd, bs, n_pages, hd ** -0.5, _DTYPE_CODES[q.dtype],
-                torch.cuda.current_stream(q.device).cuda_stream)
+                int(all_rows), torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: "
                            f"cudaError {rc} (q {tuple(q.shape)} {q.dtype}, "

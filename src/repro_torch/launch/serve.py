@@ -9,9 +9,10 @@ from a ``torch.Generator``).  Runs on the GPU unless ``--device cpu`` is
 given, and fails when asked for a GPU that is not there.  ``--engine
 contiguous`` serves through the oracle engine; the ssm and hybrid archs
 (``mamba2-2.7b``, ``zamba2-2.7b``) always do, as in the reference, and the
-report's ``engine`` says which ran.  ``--kernel gather`` serves the
-paged engine through its dense working-cache pathway instead of the page
-table (the report's ``kernel`` says which).  The metrics server, cluster
+report's ``engine`` says which ran; the dense and moe archs serve
+through the paged engine.  ``--kernel gather`` serves the paged engine
+through its dense working-cache pathway instead of the page table (the
+report's ``kernel`` says which).  The metrics server, cluster
 routing and trace export are not ported yet.
 """
 from __future__ import annotations

@@ -9,8 +9,10 @@ absent:
     PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-7b \\
         --steps 4 [--device cpu] [--resume --out DIR]
 
-Any arch of the dense, ssm and hybrid families trains (``mamba2-2.7b``,
-``zamba2-2.7b``); on a card their scans run the SSD kernel.
+Any arch of the dense, moe, ssm and hybrid families trains
+(``granite-moe-1b-a400m``, ``qwen3-moe-30b-a3b``, ``mamba2-2.7b``,
+``zamba2-2.7b``); on a card attention runs the flash kernel and the scans
+the SSD kernel.
 
 Not ported: the device mesh and its wire-up, the environment manifest, the
 HLO attestation of the compiled step and ``RunAudit.finish``.  They belong

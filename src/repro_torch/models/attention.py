@@ -164,8 +164,9 @@ def chunk_decode_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
 
     lane, col, row = (write_index if write_index is not None else
                       dense_write_index(pos, n_new, c, s_max))
-    k_cache[lane, row] = k_new[lane, col]
-    v_cache[lane, row] = v_new[lane, col]
+    # the cache's dtype, as the reference's ``.at[].set`` casts
+    k_cache[lane, row] = k_new[lane, col].to(k_cache.dtype)
+    v_cache[lane, row] = v_new[lane, col].to(v_cache.dtype)
 
     scores = torch.einsum("bckgh,bskh->bkgcs", q.float(),
                           k_cache.float()) * (hd ** -0.5)
@@ -220,8 +221,11 @@ def paged_chunk_decode_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
     (into each lane's private pages only: shared prefix pages are whole
     blocks below ``pos``), then every page is attended through the same
     table.  ``write_index`` is ``paged_write_index``'s result when the
-    caller already has it.  Returns y [B,C,D]; rows past ``n_new`` are
-    garbage the caller discards.
+    caller already has it.  Returns y [B,C,D].  For the dense family rows
+    past ``n_new`` are garbage the caller discards; a moe layer routes
+    every row of the batch together, so there the kernel computes every
+    row as the plain version does (``all_rows``): a dead row decides which
+    live rows keep their experts.
     """
     geom = head_geom(cfg)
     hd, kv, g = geom.head_dim, geom.n_kv, geom.group
@@ -242,10 +246,13 @@ def paged_chunk_decode_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
 
     rows, dst = (write_index if write_index is not None else
                  paged_write_index(page_table, pos, n_new, c, bs))
-    k_pool.view(-1, kv, hd)[dst] = k_new.reshape(-1, kv, hd)[rows]
-    v_pool.view(-1, kv, hd)[dst] = v_new.reshape(-1, kv, hd)[rows]
+    k_pool.view(-1, kv, hd)[dst] = k_new.reshape(-1, kv, hd)[rows].to(
+        k_pool.dtype)
+    v_pool.view(-1, kv, hd)[dst] = v_new.reshape(-1, kv, hd)[rows].to(
+        v_pool.dtype)
 
-    out = kops.paged_attention(q, k_pool, v_pool, page_table, pos, n_new)
+    out = kops.paged_attention(q, k_pool, v_pool, page_table, pos, n_new,
+                               all_rows=cfg.family == "moe")
     return out.reshape(b, c, kv * g * hd) @ p["wo"]
 
 
@@ -272,8 +279,8 @@ def decode_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
         k_new = rope(k_new, posb, cfg.rope_theta)
 
     lanes = torch.arange(b, device=x.device)
-    k_cache[lanes, pos.long()] = k_new[:, 0]
-    v_cache[lanes, pos.long()] = v_new[:, 0]
+    k_cache[lanes, pos.long()] = k_new[:, 0].to(k_cache.dtype)
+    v_cache[lanes, pos.long()] = v_new[:, 0].to(v_cache.dtype)
     valid = torch.arange(s_max, device=x.device)[None, :] <= pos[:, None]
 
     scores = torch.einsum("bkgh,bskh->bkgs", q[:, 0].float(),

@@ -2,11 +2,16 @@
 single-token step, the paged chunk step, their cache declarations, and
 fused token selection.
 
-Ports the dense, ssm and hybrid branches of ``repro.models.decode``.
-``prefill`` and ``decode_step`` serve all three families (the hybrid's
+Ports the dense, moe, ssm and hybrid branches of ``repro.models.decode``.
+``prefill`` and ``decode_step`` serve all four families (the hybrid's
 attention cache holds one layer per group, for the shared block); the
 chunk steps (``decode_chunk`` over the dense per-slot cache, the gather
-pathway's; ``decode_paged_chunk`` over the page pool) are dense only.
+pathway's; ``decode_paged_chunk`` over the page pool) serve the families
+with an attention cache, dense and moe.  A moe step routes every row of
+its batch together, the rows it discards included (idle lanes, a decoding
+lane's rows past its one, a prefill chunk's tail), so those rows are
+computed as the reference computes them: they decide which live rows keep
+their experts.
 Layers run as a Python loop over the stacked ``[L, ...]`` weights (the
 reference's ``lax.scan``); caches and pools are updated in place, so the
 steps return only logits.
@@ -36,13 +41,25 @@ from repro_torch.models.attention import (chunk_decode_attention,
                                           paged_write_index)
 from repro_torch.models.layers import (embed_tokens, head_geom, logits_from,
                                        rmsnorm, swiglu)
+from repro_torch.models.moe import moe_ffn
 from repro_torch.models.ssm import conv_channels, mamba_block, mamba_decode
 
+ATTENTION_CACHE = ("dense", "moe")
 
-def _dense_only(cfg: ModelConfig, what: str) -> None:
-    if cfg.family != "dense":
-        raise ValueError(f"{what}: the chunk steps serve the dense family "
-                         f"only, got {cfg.family!r}")
+
+def _attention_cache_only(cfg: ModelConfig, what: str) -> None:
+    if cfg.family not in ATTENTION_CACHE:
+        raise ValueError(f"{what}: the chunk steps serve the families with "
+                         f"an attention cache (dense, moe), got "
+                         f"{cfg.family!r}")
+
+
+def _ffn(cfg: ModelConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
+    """A dense or moe layer's FFN on its normed input (the moe aux, which
+    serving discards, is not computed)."""
+    if cfg.family == "moe":
+        return moe_ffn(cfg, p["moe"], h, with_aux=False)[0]
+    return swiglu(p["mlp"], h)
 
 
 def _layer(layers: dict, i: int) -> dict:
@@ -80,11 +97,11 @@ def _groups(cfg: ModelConfig) -> tuple[int, int]:
 
 def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> dict[str, Any]:
     """Per-slot caches of the contiguous engine: KV ``(layers, batch, seq,
-    kv, hd)`` for dense; conv tail ``(layers, batch, W-1, CC)`` and fp32
-    SSM state ``(layers, batch, H, P, N)`` for ssm; both for hybrid, whose
-    KV cache has one layer per group."""
+    kv, hd)`` for dense and moe; conv tail ``(layers, batch, W-1, CC)``
+    and fp32 SSM state ``(layers, batch, H, P, N)`` for ssm; both for
+    hybrid, whose KV cache has one layer per group."""
     fam = cfg.family
-    if fam == "dense":
+    if fam in ATTENTION_CACHE:
         return {"self": _kv_cache_spec(cfg, cfg.n_layers, batch, seq_len)}
     if fam == "ssm":
         return {"ssm": _ssm_cache_spec(cfg, cfg.n_layers, batch)}
@@ -92,15 +109,15 @@ def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> dict[str, Any]:
         groups, per = _groups(cfg)
         return {"ssm": _ssm_cache_spec(cfg, groups * per, batch),
                 "self": _kv_cache_spec(cfg, groups, batch, seq_len)}
-    raise ValueError(f"cache_specs: the port serves the dense, ssm and "
-                     f"hybrid families, got {fam!r}")
+    raise ValueError(f"cache_specs: the port serves the dense, moe, ssm "
+                     f"and hybrid families, got {fam!r}")
 
 
 def paged_cache_specs(cfg: ModelConfig, num_blocks: int,
                       block_size: int) -> dict[str, Any]:
     """The shared page pool ``(layers, num_blocks, block_size, kv, hd)``
     of the paged engine."""
-    _dense_only(cfg, "paged_cache_specs")
+    _attention_cache_only(cfg, "paged_cache_specs")
     geom = head_geom(cfg)
     shape = (cfg.n_layers, num_blocks, block_size, geom.n_kv, geom.head_dim)
     axes = ("layers", None, None, "cache_kv", None)
@@ -132,14 +149,14 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict,
         return x + y
 
     ks, vs, convs, ssms = [], [], [], []
-    if fam == "dense":
+    if fam in ATTENTION_CACHE:
         for i in range(cfg.n_layers):
             p = _layer(params["layers"], i)
             a, (k, v) = full_attention(cfg, p["attn"],
                                        rmsnorm(p["ln1"], x, eps),
                                        return_kv=True)
             x = x + a
-            x = x + swiglu(p["mlp"], rmsnorm(p["ln2"], x, eps))
+            x = x + _ffn(cfg, p, rmsnorm(p["ln2"], x, eps))
             ks.append(k)
             vs.append(v)
     elif fam == "ssm":
@@ -159,8 +176,8 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict,
             ks.append(k)
             vs.append(v)
     else:
-        raise ValueError(f"prefill: the port serves the dense, ssm and "
-                         f"hybrid families, got {fam!r}")
+        raise ValueError(f"prefill: the port serves the dense, moe, ssm "
+                         f"and hybrid families, got {fam!r}")
 
     cache: dict[str, Any] = {}
     if convs:
@@ -190,13 +207,13 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
                                 cache["ssm"]["conv"][i],
                                 cache["ssm"]["ssm"][i])
 
-    if fam == "dense":
+    if fam in ATTENTION_CACHE:
         kc, vc = cache["self"]["k"], cache["self"]["v"]
         for i in range(cfg.n_layers):
             p = _layer(params["layers"], i)
             h = rmsnorm(p["ln1"], x, eps)
             x = x + decode_attention(cfg, p["attn"], h, kc[i], vc[i], pos)
-            x = x + swiglu(p["mlp"], rmsnorm(p["ln2"], x, eps))
+            x = x + _ffn(cfg, p, rmsnorm(p["ln2"], x, eps))
     elif fam == "ssm":
         for i in range(cfg.n_layers):
             x = ssm_layer(x, i)
@@ -213,8 +230,8 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
                                      pos)
             x = x + swiglu(shared["mlp"], rmsnorm(shared["ln_mlp"], x, eps))
     else:
-        raise ValueError(f"decode_step: the port serves the dense, ssm and "
-                         f"hybrid families, got {fam!r}")
+        raise ValueError(f"decode_step: the port serves the dense, moe, ssm "
+                         f"and hybrid families, got {fam!r}")
     x = rmsnorm(params["final_norm"], x, eps)
     return logits_from(params["embed"], cfg, x)[:, 0]
 
@@ -232,7 +249,7 @@ def decode_chunk(cfg: ModelConfig, params: dict, cache: dict,
     lanes consume C prompt tokens per call while decode lanes advance one
     token in the same batched step.  Returns logits [B, Vpad] at each
     lane's last real position."""
-    _dense_only(cfg, "decode_chunk")
+    _attention_cache_only(cfg, "decode_chunk")
     b, c = tokens.shape
     x = embed_tokens(params["embed"], tokens)
     kc, vc = cache["self"]["k"], cache["self"]["v"]
@@ -242,7 +259,7 @@ def decode_chunk(cfg: ModelConfig, params: dict, cache: dict,
         h = rmsnorm(p["ln1"], x, cfg.norm_eps)
         x = x + chunk_decode_attention(cfg, p["attn"], h, kc[i], vc[i], pos,
                                        n_new, write_index=where)
-        x = x + swiglu(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps))
+        x = x + _ffn(cfg, p, rmsnorm(p["ln2"], x, cfg.norm_eps))
     last = n_new.long().clamp(min=1) - 1
     x_last = x[torch.arange(b, device=x.device), last][:, None, :]
     x_last = rmsnorm(params["final_norm"], x_last, cfg.norm_eps)
@@ -262,7 +279,7 @@ def decode_paged_chunk(cfg: ModelConfig, params: dict, cache: dict,
     [B, n_pages] int32.  Fresh KV rows are written through the table and
     attention reads through it; no dense per-slot cache exists on this
     path.  Returns logits [B, Vpad] at each lane's last real position."""
-    _dense_only(cfg, "decode_paged_chunk")
+    _attention_cache_only(cfg, "decode_paged_chunk")
     b, c = tokens.shape
     x = embed_tokens(params["embed"], tokens)
     kp, vp = cache["paged"]["k"], cache["paged"]["v"]
@@ -273,7 +290,7 @@ def decode_paged_chunk(cfg: ModelConfig, params: dict, cache: dict,
         x = x + paged_chunk_decode_attention(
             cfg, p["attn"], h, kp[i], vp[i], page_table, pos, n_new,
             write_index=where)
-        x = x + swiglu(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps))
+        x = x + _ffn(cfg, p, rmsnorm(p["ln2"], x, cfg.norm_eps))
     last = n_new.long().clamp(min=1) - 1
     x_last = x[torch.arange(b, device=x.device), last][:, None, :]
     x_last = rmsnorm(params["final_norm"], x_last, cfg.norm_eps)

@@ -1,9 +1,10 @@
 """Public model API: one object per architecture config.
 
-Ports ``repro.models.Model`` for the dense, ssm and hybrid families: the
-training loss, the train half of the batch declaration, the full-sequence
-``prefill`` and the methods the two serving engines call (the paged ones
-for dense only, as in the reference).  The reference's ``use_pallas``
+Ports ``repro.models.Model`` for the dense, moe, ssm and hybrid families:
+the training loss, the train half of the batch declaration, the
+full-sequence ``prefill`` and the methods the two serving engines call (the
+chunk and paged ones for the attention-cache families, dense and moe, as
+in the reference).  The reference's ``use_pallas``
 switch has no counterpart: the tensors' device picks the kernel or its
 plain version.  A ``Model`` holds no tensors; weights and caches are
 passed in, and caches are updated in place, so the decode methods return
@@ -40,18 +41,20 @@ class Model:
         loss, aux = cross_entropy(logits, batch["labels"],
                                   self.cfg.vocab_size, z_loss)
         metrics.update(aux)
+        if "moe_aux" in metrics:
+            loss = loss + self.cfg.router_aux_weight * metrics["moe_aux"]
         return loss, metrics
 
     # ---- batch declaration (train) ----
     def input_specs(self, shape: ShapeConfig) -> dict[str, tuple]:
         """``{name: (shape, dtype)}`` of a training batch: tokens and
-        labels for the dense, ssm and hybrid families."""
+        labels for the dense, moe, ssm and hybrid families."""
         if shape.kind != "train":
             raise ValueError(f"the port declares training batches only, got "
                              f"{shape.kind!r}")
-        if self.cfg.family not in ("dense", "ssm", "hybrid"):
-            raise ValueError(f"the port declares the dense, ssm and hybrid "
-                             f"batches, got {self.cfg.family!r}")
+        if self.cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+            raise ValueError(f"the port declares the dense, moe, ssm and "
+                             f"hybrid batches, got {self.cfg.family!r}")
         tok = ((shape.global_batch, shape.seq_len), torch.int32)
         return {"tokens": tok, "labels": tok}
 

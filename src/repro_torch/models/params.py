@@ -1,9 +1,10 @@
-"""Parameter specification trees for the dense, ssm and hybrid families.
+"""Parameter specification trees for the dense, moe, ssm and hybrid
+families.
 
 Mirrors ``repro.models.params`` together with the reference's spec
 constructors for these families (``stack.param_specs``,
 ``attention.attn_specs``, ``layers.swiglu_specs``/``embed_specs``,
-``ssm.ssm_specs``): one
+``moe.moe_specs``, ``ssm.ssm_specs``): one
 declaration of every parameter's shape, dtype, logical axes and
 initializer.  Layer weights are stacked ``[L, ...]`` exactly as in the
 reference, so a parameter tree here and the reference's
@@ -62,6 +63,12 @@ def count(specs: Any) -> int:
 
 # ---- initialisation --------------------------------------------------------
 
+# A leaf with more elements than this is drawn in slices along its leading
+# axis, each at most this size where one leading row allows, so the fp32
+# draw beside the weights stays one slice (qwen3-moe's expert leaf
+# [48, 128, 2048, 768] would need 38.7 GB at once).
+SLICE_ELEMS = 1 << 26
+
 
 def _init_one(spec: ParamSpec, generator: torch.Generator,
               device: torch.device) -> torch.Tensor:
@@ -77,9 +84,20 @@ def _init_one(spec: ParamSpec, generator: torch.Generator,
             if spec.axes[i] not in ("layers", "groups"))
         fan_in = max(int(np.prod([spec.shape[i] for i in fan_axes])), 1)
         scale = fan_in ** -0.5
-    w = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
-                    device=device)
-    return w.mul_(scale).to(spec.dtype)
+    n = int(np.prod(spec.shape))
+    if n <= SLICE_ELEMS or len(spec.shape) < 2 or spec.shape[0] < 2:
+        w = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
+                        device=device)
+        return w.mul_(scale).to(spec.dtype)
+    out = torch.empty(spec.shape, dtype=spec.dtype, device=device)
+    step = max(1, SLICE_ELEMS // (n // spec.shape[0]))  # leading rows a draw
+    for i in range(0, spec.shape[0], step):
+        w = torch.randn((min(step, spec.shape[0] - i),) + spec.shape[1:],
+                        generator=generator, dtype=torch.float32,
+                        device=device)
+        out[i:i + step] = w.mul_(scale)
+        del w
+    return out
 
 
 def initialize(specs: Any, generator: torch.Generator,
@@ -176,6 +194,16 @@ def _dense_layer_specs(cfg: ModelConfig, n: int) -> dict:
     }
 
 
+def _moe_layer_specs(cfg: ModelConfig, n: int) -> dict:
+    from repro_torch.models.moe import moe_specs  # local: moe imports this
+    return {
+        "ln1": scale(cfg.d_model, n),
+        "attn": attn_specs(cfg, n),
+        "ln2": scale(cfg.d_model, n),
+        "moe": moe_specs(cfg, n),
+    }
+
+
 def _ssm_layer_specs(cfg: ModelConfig, n: int) -> dict:
     from repro_torch.models.ssm import ssm_specs  # local: ssm imports this
     return {"ln": scale(cfg.d_model, n), "mamba": ssm_specs(cfg, n)}
@@ -194,11 +222,13 @@ def _shared_attn_specs(cfg: ModelConfig) -> dict:
 def param_specs(cfg: ModelConfig) -> dict:
     """The tree of the families the port builds: embed, final norm and the
     stacked layers; ``hybrid`` adds the shared attention block and one
-    site norm per group.  The other families are later slices."""
+    site norm per group.  vlm and encdec are later slices."""
     specs: dict[str, Any] = {"embed": embed_specs(cfg),
                              "final_norm": scale(cfg.d_model)}
     if cfg.family == "dense":
         specs["layers"] = _dense_layer_specs(cfg, cfg.n_layers)
+    elif cfg.family == "moe":
+        specs["layers"] = _moe_layer_specs(cfg, cfg.n_layers)
     elif cfg.family == "ssm":
         specs["layers"] = _ssm_layer_specs(cfg, cfg.n_layers)
     elif cfg.family == "hybrid":
@@ -207,6 +237,6 @@ def param_specs(cfg: ModelConfig) -> dict:
         specs["shared"] = _shared_attn_specs(cfg)
         specs["site_norm"] = scale(cfg.d_model, groups)
     else:
-        raise ValueError(f"the port builds the dense, ssm and hybrid "
+        raise ValueError(f"the port builds the dense, moe, ssm and hybrid "
                          f"families, got {cfg.family!r} ({cfg.name})")
     return specs

@@ -1,10 +1,13 @@
 """Per-family block stacks: the full-sequence forward for training.
 
-Ports the dense, ssm and hybrid branches of ``repro.models.stack.forward``:
-embed, then
+Ports the dense, moe, ssm and hybrid branches of
+``repro.models.stack.forward``: embed, then
 
 * dense  — per layer [RMSNorm, self-attention, residual, RMSNorm, SwiGLU,
   residual];
+* moe    — the same with the MoE FFN in place of SwiGLU; ``metrics``
+  carries ``moe_aux``, the mean over layers of each layer's
+  load-balancing aux;
 * ssm    — per layer [RMSNorm, Mamba2, residual];
 * hybrid — per group, ``attn_every - 1`` Mamba2 layers, then the one
   globally shared attention + SwiGLU block behind the group's site norm
@@ -14,7 +17,7 @@ then the final norm and fp32 logits over the padded vocab.  The reference
 scans over the stacked ``[L, ...]`` layer parameters; here a Python loop
 walks them, each leaf split once with ``unbind`` so the backward stacks
 the layers' gradients in one step.  Remat wraps each layer, and each call
-of the shared block, as the reference's scans do.  The other families are
+of the shared block, as the reference's scans do.  vlm and encdec are
 later slices.
 """
 from __future__ import annotations
@@ -29,6 +32,7 @@ from repro_torch.models import params as P
 from repro_torch.models.attention import full_attention
 from repro_torch.models.layers import (embed_tokens, logits_from, rmsnorm,
                                        swiglu)
+from repro_torch.models.moe import moe_ffn
 from repro_torch.models.ssm import mamba_block
 
 
@@ -53,6 +57,13 @@ def _dense_block(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     return h + swiglu(p["mlp"], rmsnorm(p["ln2"], h, cfg.norm_eps))
 
 
+def _moe_block(cfg: ModelConfig, p: dict, x: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    h = x + full_attention(cfg, p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps))
+    y, aux = moe_ffn(cfg, p["moe"], rmsnorm(p["ln2"], h, cfg.norm_eps))
+    return h + y, aux.mean()
+
+
 def _ssm_block(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     return x + mamba_block(cfg, p["mamba"], rmsnorm(p["ln"], x, cfg.norm_eps))
 
@@ -70,21 +81,30 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
             remat: str = "none") -> tuple[torch.Tensor, dict]:
     """Full-sequence forward -> (logits [B,S,Vpad] fp32, metrics)."""
     fam = cfg.family
-    if fam not in ("dense", "ssm", "hybrid"):
-        raise ValueError(f"the port's stack runs the dense, ssm and hybrid "
-                         f"families, got {fam!r} ({cfg.name})")
+    if fam not in ("dense", "moe", "ssm", "hybrid"):
+        raise ValueError(f"the port's stack runs the dense, moe, ssm and "
+                         f"hybrid families, got {fam!r} ({cfg.name})")
+    metrics: dict[str, torch.Tensor] = {}
     x = embed_tokens(params["embed"], batch["tokens"])
     per_layer = P.tree_map(lambda t: t.unbind(0), params["layers"])
 
     def layer(i: int) -> dict:
         return P.tree_map(lambda ts: ts[i], per_layer)
 
-    block = _dense_block if fam == "dense" else _ssm_block
-    body = _remat(lambda x, p: block(cfg, p, x), remat)
-    if fam != "hybrid":
+    if fam == "moe":
+        body = _remat(lambda x, p: _moe_block(cfg, p, x), remat)
+        auxes = []
+        for i in range(cfg.n_layers):
+            x, aux = body(x, layer(i))
+            auxes.append(aux)
+        metrics["moe_aux"] = torch.stack(auxes).mean()
+    elif fam != "hybrid":
+        block = _dense_block if fam == "dense" else _ssm_block
+        body = _remat(lambda x, p: block(cfg, p, x), remat)
         for i in range(cfg.n_layers):
             x = body(x, layer(i))
     else:
+        body = _remat(lambda x, p: _ssm_block(cfg, p, x), remat)
         groups = cfg.n_layers // cfg.attn_every
         per = cfg.attn_every - 1
         shared = _remat(lambda x, sn: _shared_block(cfg, params["shared"],
@@ -95,4 +115,4 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
                 x = body(x, layer(g * per + j))
             x = shared(x, site_norms[g])
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return logits_from(params["embed"], cfg, x), {}
+    return logits_from(params["embed"], cfg, x), metrics

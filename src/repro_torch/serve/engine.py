@@ -445,11 +445,10 @@ class PagedServeEngine:
                  swap_cost: SwapCostModel | None = None,
                  tracer: Tracer | None = None,
                  device: str | torch.device = "cuda"):
-        if model.cfg.family != "dense":
+        if model.cfg.family not in ("dense", "moe"):
             raise ValueError(
-                f"the port's paged engine needs an attention cache (dense; "
-                f"moe is a later slice); {model.cfg.family!r} serves through "
-                f"ServeEngine")
+                f"the paged engine needs an attention cache (dense or moe); "
+                f"{model.cfg.family!r} serves through ServeEngine")
         if admit_every < 1:
             raise ValueError(f"admit_every must be >= 1, got {admit_every}")
         if kernel not in ("paged", "gather"):

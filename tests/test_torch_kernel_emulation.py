@@ -246,7 +246,7 @@ def emulated_lib(tmp_path_factory):
         "emulated"))
     lib.paged_attention_launch.argtypes = (
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     lib.paged_attention_launch.restype = ctypes.c_int
     lib.paged_attention_design.argtypes = [ctypes.c_int] * 4
     lib.paged_attention_design.restype = ctypes.c_int
@@ -288,7 +288,7 @@ _CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PAGED_DESIGNS = {0: "scalar", 1: "mma"}
 
 
-def _launch_emulated(fn, q, k, v, pt, pos, n_new):
+def _launch_emulated(fn, q, k, v, pt, pos, n_new, all_rows=False):
     """The kernel's entry point on NaN-filled output and workspace (of
     ``paged_workspace_elements`` floats), as the wrapper calls it."""
     b, c, kv, g, hd = q.shape
@@ -299,7 +299,8 @@ def _launch_emulated(fn, q, k, v, pt, pos, n_new):
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pt.data_ptr(),
             pos.data_ptr(), n_new.data_ptr(), out.data_ptr(),
             None if ws is None else ws.data_ptr(), b, c, kv, g, hd,
-            k.shape[1], pt.shape[1], hd ** -0.5, _CODES[q.dtype], None)
+            k.shape[1], pt.shape[1], hd ** -0.5, _CODES[q.dtype],
+            int(all_rows), None)
     assert rc == 0
     return out
 
@@ -398,6 +399,40 @@ def test_emulated_kernel_merges_splits(emulated_lib, case):
     again = _launch_emulated(emulated_lib.paged_attention_launch, *args)
     assert torch.equal(out, again)
 
+
+# Every row computed (``all_rows``, the moe family's mode), as
+# (b, c, kv, g, hd, bs, n_pages, dtype, pos, n_new): a decoding lane whose
+# dead rows cross into the next page, a prefill tail, an idle lane, and a
+# lane whose rows run past the table.  The scalar design (f32) and the
+# tensor-core one (bf16 chunks, row-parallel), one split a lane and
+# several, at the archs' moe geometries cut in kv heads.
+ALL_ROWS_CASES = [
+    (4, 4, 2, 2, 32, 4, 4, torch.float32, [2, 5, 0, 13], [1, 2, 0, 3]),
+    (3, 16, 1, 2, 64, 4, 96, torch.float32, [250, 3, 90], [1, 0, 7]),
+    (3, 16, 1, 8, 128, 16, 6, torch.bfloat16, [14, 30, 3], [1, 5, 0]),
+    (3, 16, 1, 2, 64, 16, 64, torch.bfloat16, [900, 0, 500], [1, 0, 9]),
+]
+
+
+@pytest.mark.parametrize("case", ALL_ROWS_CASES,
+                         ids=lambda c: "x".join(map(str, c[:7])) + "-"
+                         + str(c[7]).replace("torch.", ""))
+def test_emulated_all_rows_match_plain_on_every_row(emulated_lib, case):
+    """With ``all_rows`` every row of every lane, dead rows and idle lanes
+    included, equals the plain version's; without it the dead rows are
+    zeros, which is what differs; a second launch is equal bit for bit."""
+    *geom, dtype, pos, n_new = case
+    b, c, kv, g, hd, bs, n_pages = geom
+    args = list(_problem(b, c, kv, g, hd, bs, n_pages, dtype, seed=sum(geom)))
+    args[4] = torch.tensor(pos, dtype=torch.int32)
+    args[5] = torch.tensor(n_new, dtype=torch.int32)
+    launch = emulated_lib.paged_attention_launch
+    out = _launch_emulated(launch, *args, all_rows=True)
+    torch.testing.assert_close(out.float(),
+                               paged_attention_plain(*args).float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+    assert torch.equal(out, _launch_emulated(launch, *args, all_rows=True))
+    _check_rows(_launch_emulated(launch, *args), args, TOL[dtype])
 
 
 def test_emulated_design_and_splits_match_the_wrapper(emulated_lib):

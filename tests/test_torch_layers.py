@@ -20,7 +20,7 @@ from repro_torch.models import layers as TL
 from repro_torch.models import params as TP
 
 ARCH = "deepseek-7b"
-DENSE = [n for n, c in T_ARCHS.items() if c.family == "dense"]
+BUILT = [n for n, c in T_ARCHS.items() if c.family in ("dense", "moe")]
 BF16_TOL = 2e-2
 
 
@@ -64,10 +64,11 @@ def test_configs_match_reference(name):
         reduced(ALL_ARCHS[name]))
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", BUILT)
 def test_param_specs_match_reference(name):
-    """The dense spec tree has the reference's keys, shapes, axes, dtypes
-    and initializers at full width (declaration only, nothing allocated)."""
+    """The dense and moe spec trees have the reference's keys, shapes, axes,
+    dtypes and initializers at full width (declaration only, nothing
+    allocated), and the same total and active parameter counts."""
     pytest.importorskip("jax")
     import jax.numpy as jnp
     from repro.configs import ALL_ARCHS
@@ -89,17 +90,20 @@ def test_param_specs_match_reference(name):
     got = flat(TP.param_specs(T_ARCHS[name]))
     assert got == want
     assert T_ARCHS[name].param_count() == stack.param_count(ALL_ARCHS[name])
+    assert T_ARCHS[name].active_param_count() == \
+        ALL_ARCHS[name].active_param_count()
 
 
 def test_param_specs_refuse_other_families():
-    """The families not ported yet (moe, vlm, encdec) are refused; dense,
+    """The families not ported yet (vlm, encdec) are refused; dense, moe,
     ssm and hybrid are built (``tests/test_torch_ssm.py`` holds the latter
     two to the reference)."""
     for name, cfg in T_ARCHS.items():
-        if cfg.family in ("dense", "ssm", "hybrid"):
+        if cfg.family in ("dense", "moe", "ssm", "hybrid"):
             assert TP.param_specs(cfg), name
         else:
-            with pytest.raises(ValueError, match="dense, ssm and hybrid"):
+            with pytest.raises(ValueError,
+                               match="dense, moe, ssm and hybrid"):
                 TP.param_specs(cfg)
 
 

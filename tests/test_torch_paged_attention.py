@@ -11,7 +11,8 @@ kernel against its plain version.
   masked write through the page table and the shared-prefix no-write
   guarantee.
 * The CUDA kernel against the plain version on the card (``cuda`` marker;
-  skips without a GPU) and the wrapper's argument checks, which run here.
+  skips without a GPU), its live rows and, in the every-row mode, every
+  row; and the wrapper's argument checks, which run here.
 """
 import functools
 
@@ -405,3 +406,41 @@ def test_cuda_kernel_is_deterministic(cuda, dtype):
         second = paged_attention_cuda(*args)
         torch.cuda.synchronize()
         assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_all_rows_match_plain_on_every_row(cuda, dtype):
+    """The every-row mode (``all_rows``, the moe family's) against the plain
+    version on every row of every lane, dead rows and idle lanes included,
+    over ``_card_cases`` and qwen3-moe's and granite-moe's geometries with
+    dead rows crossing a page edge; both designs in bf16, lanes split
+    across blocks, and two calls equal bit for bit."""
+    cases = _card_cases()
+    for c, kv, g, hd in ((16, 4, 8, 128), (1, 4, 8, 128), (16, 8, 2, 64),
+                         (1, 8, 2, 64)):
+        cases.append(_case(3, c, kv, g, hd, 16, 64, 200, [1015, 0, 500],
+                           [1, 0, min(c, 9)], seed=c + g + hd))
+    ops.reset_launches()
+    designs, splits = set(), set()
+    for case in cases:
+        args = _torch(case, dtype, cuda)
+        b, c, kv, g, hd = args[0].shape
+        designs.add(paged_design(args[0].dtype, c, g, hd))
+        splits.add(paged_splits(b, c, kv, g, hd, args[1].shape[1],
+                                args[3].shape[1], args[0].dtype) > 1)
+        out = ops.paged_attention(*args, all_rows=True)
+        again = paged_attention_cuda(*args, all_rows=True)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again)
+        ref = paged_attention_plain(*args).float().cpu()
+        np.testing.assert_allclose(out.float().cpu().numpy(), ref.numpy(),
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+        diff = float(((out.float().cpu() - ref) ** 2).sum())
+        if dtype == "bfloat16":
+            assert (diff / float((ref ** 2).sum())) ** 0.5 <= REL_TOL, \
+                (c, g, hd)
+    assert ops.LAUNCHES["paged_attention"] == len(cases)
+    assert designs == ({"scalar"} if dtype == "float32"
+                       else {"scalar", "mma"})
+    assert splits == {False, True}

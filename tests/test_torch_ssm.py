@@ -555,6 +555,6 @@ def test_sample_batch_takes_its_device_from_the_caller():
     for arch in ("mamba2-2.7b", "zamba2-2.7b", "deepseek-7b"):
         assert set(t_build(t_reduced(T_ARCHS[arch])).input_specs(shape)) == {
             "tokens", "labels"}
-    with pytest.raises(ValueError, match="dense, ssm and hybrid"):
+    with pytest.raises(ValueError, match="dense, moe, ssm and hybrid"):
         t_build(dataclasses.replace(t_reduced(T_ARCHS["whisper-medium"]))
                 ).input_specs(shape)
