@@ -204,16 +204,48 @@ non-zero without printing a result:
 29. moe_train_parity — (run after train_parity) reduced granite-moe, seq
                   256: the loss and every gradient through the flash
                   kernel against the plain version on the card, held within
-                  2e-2 in f32 and reported in bf16.
+                  2e-2 in f32.  In bf16 each layer's route flips (tokens
+                  whose top-k expert set differs between the two steps) are
+                  counted, and the plain step is run again with the kernel
+                  step's routes pinned (gate weights from its own
+                  probabilities): its loss and every gradient are held
+                  within 2e-2, and each layer's attention and moe outputs
+                  are compared (the first layer past 2e-2 named).
 30. moe_train   — (run after train) granite-moe-1b-a400m at full width and
                   depth, seq 2048, batch 4, remat full, 4 steps of the
                   default schedule: finite losses and router aux, the flash
                   kernel launched twice a layer a step (counts zeroed just
                   before); one more step under ``torch.profiler``.
+31. cluster     — (run after gather_serve) ``ClusterEngine`` over 2 replicas
+                  of the served deepseek-7b (one set of weights, each a
+                  ``PagedServeEngine(kernel="paged")``, slots 4, block 16,
+                  chunk 16, 512 pages): 16 chat requests of 4 tenants
+                  (256-token prefixes, suffixes of 16-256, 32 new tokens,
+                  bursts of 4 every 8 ticks, ``workloads.generate``) through
+                  one engine and through the cluster under affinity,
+                  round-robin and random routing.  Every cluster's streams
+                  equal the single engine's; affinity beats random on
+                  ``routed_affinity`` and ``shared_hit_rate``; the paged
+                  kernel runs once a layer a tick in every replica (counts
+                  zeroed just before each run); every replica's allocator
+                  and host tier check; ``RunAudit`` gates the affinity run
+                  clean and a routing rule flags random routing with
+                  ``pathway-routing`` only; ``compare_engines(cluster=...)``
+                  passes sampled.  ms a tick, tokens/s, routing counters and
+                  occupancy for each run.
+32. serve_cli   — ``python -m repro_torch.launch.serve --replicas 2
+                  --metrics-port 0 --trace-out FILE`` in a process of its
+                  own: exit code 0, the audit's gate passed, a Chrome trace
+                  with one timeline per request.
+
+Every engine the serve, gather_serve and cluster phases build must leave
+``torch.cuda.memory_allocated()`` where it found it once deleted, with no
+help from the collector; each served model is freed by dropping it.
 
 Then the ``kernels`` summary line (the paged row with its design, launch
 floor and ``paged_timing`` shapes; the paged and flash rows also carry the
-moe runs' launches, the paged row the every-row timing), the card's name
+moe runs' launches, the paged row the cluster runs' launches by policy and
+the every-row timing), the card's name
 and power limit as ``nvidia-smi`` reports them, and last ``{"ok": true,
 "device": ...}``.
 """
@@ -222,8 +254,8 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
-import gc
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -263,8 +295,12 @@ from repro_torch.neuro import sim as neuro_sim  # noqa: E402
 from repro_torch.neuro.cable import (CellConfig, CellState,  # noqa: E402
                                      init_state)
 from repro_torch.neuro.ring import RingConfig, is_ring_head  # noqa: E402
-from repro_torch.serve import (PagedServeEngine, Request,  # noqa: E402
-                               SamplingParams, ServeEngine, compare_engines,
+from repro_torch.audit import (AuditContext, Evidence,  # noqa: E402
+                               ExpectationRegistry, ExpectedSignature, Rule,
+                               RunAudit, Tracer)
+from repro_torch.serve import (ClusterEngine, PagedServeEngine,  # noqa: E402
+                               Request, SamplingParams, ServeEngine,
+                               WorkloadSpec, compare_engines, generate,
                                token_matrix)
 from repro_torch.train.step import (init_train_state,  # noqa: E402
                                     make_train_step)
@@ -329,6 +365,14 @@ def check(cond: bool, msg: str) -> None:
 
 
 # ------------------------------------------------------------------ cases
+
+
+def check_freed(before: int, what: str) -> None:
+    """The card holds what it held before ``what`` was built, once it is
+    deleted: no engine (page pool, caches, workspaces) outlives its last
+    reference, with no help from the collector."""
+    left = torch.cuda.memory_allocated() - before
+    check(left == 0, f"{what}: {left} bytes still allocated after del")
 
 
 def paged_case(b, c, kv, g, hd, bs, n_pages, pos, n_new, dtype, seed,
@@ -634,6 +678,7 @@ def phase_serve(dev):
     del warm
 
     reqs = serve_requests(cfg)
+    before = torch.cuda.memory_allocated()
     eng = PagedServeEngine(model, params, slots=SLOTS, max_len=MAX_LEN,
                            block_size=BLOCK, chunk=CHUNK, device=dev)
     torch.cuda.synchronize()
@@ -659,6 +704,7 @@ def phase_serve(dev):
               f"request {r.rid}: token outside the vocab")
     streams = {r.rid: r.out for r in done}
     del eng
+    check_freed(before, "the serve engine")
 
     # the same trace again, untimed, through the recording wrapper: its
     # pool and widest busy tick feed the parity and timing phases
@@ -2343,6 +2389,7 @@ def phase_gather_serve(model, params, paged, dev) -> None:
                             kernel="gather", device=dev)
     warm.run([Request(rid=0, prompt=list(range(20)), max_new=3)])
     del warm
+    before = torch.cuda.memory_allocated()
     eng = PagedServeEngine(model, params, slots=SLOTS, max_len=MAX_LEN,
                            block_size=BLOCK, chunk=CHUNK, kernel="gather",
                            device=dev)
@@ -2353,6 +2400,8 @@ def phase_gather_serve(model, params, paged, dev) -> None:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     rep = eng.report()
+    del eng
+    check_freed(before, "the gather engine")
     check(rep["served"] == N_REQUESTS and rep["kernel"] == "gather",
           f"gather serve: {rep['served']} served, kernel {rep['kernel']}")
     check(not any(ops.LAUNCHES.values()),
@@ -2372,6 +2421,167 @@ def phase_gather_serve(model, params, paged, dev) -> None:
           "token_agreement_with_paged": same / sum(map(len, ref.values())),
           "requests_equal_to_paged": sum(got[r] == ref[r] for r in ref),
           "leading_tokens_equal": lead})
+
+
+CLUSTER_REPLICAS = 2
+CLUSTER_POLICIES = ("affinity", "round_robin", "random")
+
+
+def cluster_trace(cfg):
+    """The serve phase's shape spread over 4 tenants: 16 chat requests, a
+    256-token system prompt a tenant, suffixes of 16-256 tokens, 32 new
+    tokens, in bursts of 4 with 8 quiet ticks between."""
+    return generate(WorkloadSpec(
+        name="cluster-chat", family="chat", arrival="bursty",
+        n_requests=16, vocab_size=cfg.vocab_size, seed=SEED,
+        max_new=MAX_NEW, prefix_len=PREFIX, n_streams=4, suffix_lo=16,
+        suffix_hi=256, burst_size=4, burst_gap=8.0))
+
+
+def replica_stats(engines) -> tuple[int, list[float]]:
+    """Each paged engine's allocator and host tier checked; their decode
+    steps summed, and each one's mean batch occupancy."""
+    for eng in engines:
+        eng.alloc.check()
+        eng.host.check()
+    reps = [eng.report() for eng in engines]
+    return (sum(rep["decode_steps"] for rep in reps),
+            [rep["mean_batch_occupancy"] for rep in reps])
+
+
+def phase_cluster(model, params, dev) -> dict:
+    """``ClusterEngine`` over 2 replicas of the served deepseek-7b (one set
+    of weights), each a ``PagedServeEngine(kernel="paged")``: the chat trace
+    through one engine, then through the cluster under each routing policy,
+    all with the trace's arrivals.  Every cluster's streams must equal the
+    single engine's, affinity must beat random on ``routed_affinity`` and
+    ``shared_hit_rate``, the paged kernel must run once a layer a tick in
+    every replica (counts zeroed just before each run), every replica's
+    allocator and host tier must check, ``RunAudit`` must gate the affinity
+    run clean, a routing rule calibrated on it must flag random routing with
+    ``pathway-routing`` only, each engine must leave the card as it found it
+    when deleted, and ``compare_engines(cluster=...)`` must pass sampled."""
+    cfg = model.cfg
+    trace = cluster_trace(cfg)
+    n = trace.n_requests
+    check(trace.max_feed <= MAX_LEN, f"cluster trace feeds {trace.max_feed}")
+    geom = dict(slots=SLOTS, max_len=MAX_LEN, block_size=BLOCK, chunk=CHUNK,
+                device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def serve(make):
+        before = torch.cuda.memory_allocated()
+        eng = make()
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        done = eng.run(trace.requests(), arrivals=list(trace.arrivals))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.LAUNCHES["paged_attention"]
+        steps, occupancy = replica_stats(
+            eng.replicas if isinstance(eng, ClusterEngine) else [eng])
+        check(launches == steps * cfg.n_layers,
+              f"paged_attention launched {launches} times, expected the "
+              f"replicas' decode steps x layers = {steps} x {cfg.n_layers}")
+        rep = eng.report()
+        ticks = int(eng.now)
+        del eng
+        check_freed(before, "an engine of the cluster phase")
+        return token_matrix(done, n, MAX_NEW), rep, {
+            "wall_s": wall, "ticks": ticks,
+            "ms_per_tick": 1e3 * wall / ticks,
+            "tokens_out_per_s": rep["tokens_out"] / wall,
+            "decode_steps": steps, "paged_attention_launches": launches,
+            "occupancy": occupancy}
+
+    single, _, single_run = serve(lambda: PagedServeEngine(model, params,
+                                                           **geom))
+    ctx = AuditContext(workload="serve", family=cfg.family, arch=cfg.name,
+                       shared_prefix=True)
+    runs, reports, audit_findings = {}, {}, None
+    for routing in CLUSTER_POLICIES:
+        audit = RunAudit(ctx)
+        got, rep, run = serve(lambda: ClusterEngine(
+            model, params, replicas=CLUSTER_REPLICAS, routing=routing,
+            routing_seed=SEED, tracer=audit.tracer, **geom))
+        check((got >= 0).all() and (got == single).all(),
+              f"cluster ({routing}) streams differ from one engine's")
+        if routing == "affinity":
+            diag = audit.finish(engine_report=rep, source="cluster")
+            audit_findings = diag.findings
+            check(diag.gate(), f"RunAudit of the affinity run: "
+                               f"{diag.findings}")
+        reports[routing] = rep
+        runs[routing] = {**run, **{k: rep[k] for k in (
+            "routed_affinity", "shared_hit_rate", "affine_opportunities",
+            "routed_spills", "routed_cold", "summary_rebuilds",
+            "prefill_tokens", "cached_tokens")}}
+    healthy, misrouted = reports["affinity"], reports["random"]
+    check(healthy["routed_affinity"] > misrouted["routed_affinity"]
+          and healthy["shared_hit_rate"] > misrouted["shared_hit_rate"],
+          f"affinity {runs['affinity']} does not beat random "
+          f"{runs['random']}")
+    rule = Rule(name="cluster-routing", workloads=("serve",),
+                expect=ExpectedSignature(
+                    min_routed_affinity=0.8 * healthy["routed_affinity"],
+                    min_shared_hit_rate=0.85 * healthy["shared_hit_rate"]))
+    registry = ExpectationRegistry([rule])
+    kinds = {routing: sorted({f["kind"] for f in registry.evaluate(
+        ctx, Evidence(engine_report=rep))})
+        for routing, rep in reports.items()}
+    check(kinds["random"] == ["pathway-routing"] and not kinds["affinity"],
+          f"routing findings by policy: {kinds}")
+    sampled = SamplingParams(temperature=0.8, top_k=50, top_p=0.95, seed=1)
+    verdict = compare_engines(model, params, trace.requests, slots=SLOTS,
+                              max_len=MAX_LEN, block_size=BLOCK, chunk=CHUNK,
+                              sampling=sampled,
+                              cluster={"replicas": CLUSTER_REPLICAS},
+                              device=dev)
+    check(verdict.ok, f"compare_engines(cluster=...) sampled: "
+                      f"{verdict.summary()['verdicts']}")
+    emit({"phase": "cluster", "arch": cfg.name, "layers": cfg.n_layers,
+          "replicas": CLUSTER_REPLICAS, "trace": trace.describe(),
+          "single": single_run, "runs": runs, "audit": audit_findings,
+          "routing_findings": kinds,
+          "tick_ratio_affinity_to_single":
+              runs["affinity"]["ms_per_tick"] / single_run["ms_per_tick"],
+          "compare_engines_sampled": verdict.summary()["verdicts"],
+          "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+          "streams_equal": True})
+    return {routing: run["paged_attention_launches"]
+            for routing, run in runs.items()}
+
+
+def phase_serve_cli() -> None:
+    """``python -m repro_torch.launch.serve --replicas 2 --metrics-port 0
+    --trace-out FILE`` on the card, in a process of its own: exit code 0,
+    the audit's gate passed, and a Chrome trace with one timeline per
+    request."""
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        r = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--replicas",
+             str(CLUSTER_REPLICAS), "--metrics-port", "0", "--trace-out",
+             str(path)], capture_output=True, text=True, timeout=600,
+            cwd=root, env={**os.environ, "PYTHONPATH": str(root / "src")})
+        check(r.returncode == 0, f"serve CLI exited {r.returncode}: "
+                                 f"{r.stderr[-2000:]}")
+        out = json.loads(r.stdout)
+        trace = json.loads(path.read_bytes())
+    check(out["audit"]["gate_ok"], f"serve CLI audit: {out['audit']}")
+    check(out["engine"] == "cluster" and out["device"].startswith("cuda"),
+          f"serve CLI ran {out['engine']} on {out['device']}")
+    check(trace["otherData"]["requests"] == out["served"]
+          == out["trace_out"]["requests"],
+          f"trace of {trace['otherData']['requests']} requests, served "
+          f"{out['served']}")
+    emit({"phase": "serve_cli", **{k: out[k] for k in (
+        "arch", "device_name", "engine", "replicas", "routing", "served",
+        "routed", "routed_affinity", "shared_hit_rate", "tokens_per_s",
+        "trace_out", "attribution")},
+        "metrics_port": out["metrics"]["port"], "audit": out["audit"]})
 
 
 def phase_moe_serve(dev) -> tuple[dict, dict]:
@@ -2501,13 +2711,84 @@ def moe_row_timing(eng, best, dev) -> dict:
     return out
 
 
+class _RoutedTorch:
+    """``torch`` as ``models/moe.py`` sees it, with ``topk`` recorded or
+    replayed: each router call's indices are appended to ``recorded`` in
+    layer order; with ``pinned`` given, call i takes ``pinned[i]`` for its
+    indices and gathers its gate weights from its own probabilities."""
+
+    def __init__(self, pinned=None):
+        self.pinned = pinned
+        self.recorded: list[torch.Tensor] = []
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    def topk(self, probs, k, dim=-1):
+        if self.pinned is None:
+            vals, idx = torch.topk(probs, k, dim=dim)
+        else:
+            idx = self.pinned[len(self.recorded)]
+            vals = probs.gather(dim, idx)
+        self.recorded.append(idx.detach())
+        return vals, idx
+
+
+@contextlib.contextmanager
+def moe_routes(pinned=None):
+    """The moe router's top-k through ``_RoutedTorch``, swapped in on the
+    smoke side (the package has no switch); yields the recorded indices."""
+    from repro_torch.models import moe
+    routed = _RoutedTorch(pinned)
+    saved, moe.torch = moe.torch, routed
+    try:
+        yield routed.recorded
+    finally:
+        moe.torch = saved
+
+
+@contextlib.contextmanager
+def moe_layer_outputs():
+    """Each layer's attention output and moe output, in layer order, as
+    the model's blocks compute them (recorded by wrappers swapped into the
+    stack module on the smoke side)."""
+    from repro_torch.models import stack
+    outs = {"attention": [], "moe": []}
+    saved = stack.full_attention, stack.moe_ffn
+
+    def attention(*args, **kw):
+        y = saved[0](*args, **kw)
+        outs["attention"].append(y.detach())
+        return y
+
+    def moe_ffn(*args, **kw):
+        y, aux = saved[1](*args, **kw)
+        outs["moe"].append(y.detach())
+        return y, aux
+
+    stack.full_attention, stack.moe_ffn = attention, moe_ffn
+    try:
+        yield outs
+    finally:
+        stack.full_attention, stack.moe_ffn = saved
+
+
+def route_flips(got, want) -> list[int]:
+    """Per layer, the tokens whose top-k expert set differs."""
+    return [int((a.sort(dim=-1).values != b.sort(dim=-1).values)
+                .any(dim=-1).sum()) for a, b in zip(got, want)]
+
+
 def phase_moe_train_parity(dev) -> None:
     """Reduced granite-moe, seq 256, batch 1: the loss and every gradient
     through the flash kernel against the same step with the plain version
-    on the card.  Held within ``GRAD_TOL`` in f32, where the routing is the
-    same on both sides; in bf16 a route flipped by one ulp of an attention
-    output moves an expert's gradient by about as much as the tolerance
-    (PERF.md), so the bf16 errors are reported, not held."""
+    on the card.  Held within ``GRAD_TOL`` in f32.  In bf16 each layer's
+    route flips are counted (tokens whose top-k set differs between the two
+    steps), and the plain step is run again with the kernel step's routes
+    pinned (its gate weights from its own probabilities): that pinned step's
+    loss and every gradient are held within ``GRAD_TOL`` of the kernel
+    step's, and each layer's attention and moe outputs are compared, the
+    first layer past ``TOL`` (bf16) named."""
     cfg = reduced(ALL_ARCHS[MOE_TRAIN_ARCH])
     model = build(cfg)
     params = model.init_params(torch.Generator(device=dev).manual_seed(SEED),
@@ -2519,28 +2800,60 @@ def phase_moe_train_parity(dev) -> None:
         p = P.tree_map(lambda t: t if t.dtype == torch.float32 else
                        t.to(dtype), params)
         ops.reset_launches()
-        loss_k, grads_k = loss_and_grads(model, p, batch)
+        with moe_routes() as top_k, moe_layer_outputs() as outs_k:
+            loss_k, grads_k = loss_and_grads(model, p, batch)
         launches = ops.LAUNCHES["flash_attention"]
-        with plain_flash():
+        with plain_flash(), moe_routes() as top_p:
             loss_p, grads_p = loss_and_grads(model, p, batch)
         torch.cuda.synchronize()
         check(launches == cfg.n_layers,
               f"moe: flash_attention launched {launches} times, expected "
               f"one per layer ({cfg.n_layers})")
+        check(len(top_k) == len(top_p) == cfg.n_layers,
+              f"moe: {len(top_k)} and {len(top_p)} router calls, expected "
+              f"one per layer ({cfg.n_layers})")
         errs = [rel_norm(a, b) for a, b in zip(grads_k, grads_p)]
-        res[str(dtype)[6:]] = {
+        entry = {
             "loss_kernel": float(loss_k), "loss_plain": float(loss_p),
             "loss_rel_err": rel_norm(loss_k, loss_p),
             "grad_max_rel_norm_err": max(errs), "flash_launches": launches,
-            "flash_design": flash_design(dtype, cfg.resolved_head_dim)}
-    f32 = res["float32"]
+            "flash_design": flash_design(dtype, cfg.resolved_head_dim),
+            "tokens": int(top_k[0].shape[0]),
+            "route_flips_per_layer": route_flips(top_k, top_p)}
+        if dtype == torch.bfloat16:
+            with plain_flash(), moe_routes(pinned=top_k) as top_pp, \
+                    moe_layer_outputs() as outs_pp:
+                loss_pp, grads_pp = loss_and_grads(model, p, batch)
+            torch.cuda.synchronize()
+            check(route_flips(top_k, top_pp) == [0] * cfg.n_layers,
+                  "moe: the pinned step did not take the kernel's routes")
+            layers = [{"layer": i,
+                       "attention": rel_norm(outs_k["attention"][i],
+                                             outs_pp["attention"][i]),
+                       "moe": rel_norm(outs_k["moe"][i], outs_pp["moe"][i])}
+                      for i in range(cfg.n_layers)]
+            entry["pinned"] = {
+                "loss_plain": float(loss_pp),
+                "loss_rel_err": rel_norm(loss_k, loss_pp),
+                "grad_max_rel_norm_err": max(
+                    rel_norm(a, b) for a, b in zip(grads_k, grads_pp)),
+                "layers": layers,
+                "first_layer_past_band": next(
+                    (row["layer"] for row in layers
+                     if max(row["attention"], row["moe"]) > TOL[dtype]),
+                    None)}
+        res[str(dtype)[6:]] = entry
+    f32, pinned = res["float32"], res["bfloat16"]["pinned"]
     check(f32["loss_rel_err"] <= GRAD_TOL
           and f32["grad_max_rel_norm_err"] <= GRAD_TOL,
           f"moe gradients through the kernel vs plain: {f32}")
+    check(pinned["loss_rel_err"] <= GRAD_TOL
+          and pinned["grad_max_rel_norm_err"] <= GRAD_TOL,
+          f"moe bf16 gradients with the routes pinned: {pinned}")
     emit({"phase": "moe_train_parity", "arch": cfg.name,
           "layers": cfg.n_layers, "seq": PARITY_SEQ, "batch": 1,
           "grad_leaves": len(grads_k), "tolerance": GRAD_TOL,
-          "held": "float32", **res})
+          "held": ["float32", "bfloat16 with the routes pinned"], **res})
 
 
 def phase_moe_train(dev) -> dict:
@@ -2631,13 +2944,11 @@ def main() -> int:
     paged_timing = phase_paged_timing(dev)
     phase_profile(model, params, dev)
     phase_gather_serve(model, params, paged, dev)
-    # free each served model before the next: the engines hold it in
-    # reference cycles, which only the collector breaks
+    cluster_launches = phase_cluster(model, params, dev)
+    phase_serve_cli()
     del model, params
-    gc.collect()
     torch.cuda.empty_cache()
     moe_serve_launches, moe_timing = phase_moe_serve(dev)
-    gc.collect()
     torch.cuda.empty_cache()
     phase_train_parity(dev)
     phase_moe_train_parity(dev)
@@ -2670,6 +2981,7 @@ def main() -> int:
     # the HH row's redesign: the epoch kernel, one launch an epoch on the
     # ring's path (hh_step's launches are the epoch hold's cable.step path)
     extra = {"paged_attention": {
+        "cluster_launches": cluster_launches,
         "moe_launches": moe_serve_launches["paged_attention"],
         "moe_all_rows": {key: moe_timing[key] for key in (
             "shape", "design", "splits", "max_abs_err", "all_rows",

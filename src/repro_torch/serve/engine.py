@@ -39,6 +39,7 @@ exactly that).  Steps run eagerly, so ``compiles`` is always 0.
 from __future__ import annotations
 
 import time
+import weakref
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Callable
@@ -123,6 +124,15 @@ def _validate_fit(req: Request, max_len: int) -> None:
             f"request {req.rid}: max_new={req.max_new} must be < "
             f"max_len={max_len} (the prompt is clamped to max_len - "
             f"max_new tokens of context; no context would remain)")
+
+
+def _weak(method: Callable) -> Callable:
+    """``method`` called through a weak reference to its object: the parts
+    an engine hands its hooks to hold no strong reference back to it, so a
+    dropped engine (and the model memory it holds) is freed at once, not
+    at the collector's next pass."""
+    ref = weakref.WeakMethod(method)
+    return lambda *args: ref()(*args)
 
 
 def _samples(req: Request) -> bool:
@@ -503,7 +513,8 @@ class PagedServeEngine:
             # only: gather-mode registered pages already live in the host
             # KVPool, spilling them would copy host to host
             self.prefix.attach_spill(
-                spill_out=self._spill_page, page_in=self._page_in,
+                spill_out=_weak(self._spill_page),
+                page_in=_weak(self._page_in),
                 drop=self.host.decref, capacity=host_blocks)
         self.now = 0.0
         self.tick_dt = tick_dt
@@ -511,7 +522,7 @@ class PagedServeEngine:
         self._ticks = 0
         self.lane = LaneState(slots)
         self.trace = tracer or NULL_TRACER
-        self.sched = Scheduler(slots=slots, clock=lambda: self.now,
+        self.sched = Scheduler(slots=slots, clock=_weak(self._clock),
                                tracer=self.trace, preemption=preemption)
         self.active: dict[int, _Slot] = {}
         self.stats = EngineStats()
@@ -527,6 +538,9 @@ class PagedServeEngine:
                         admit_every=admit_every, kernel=kernel,
                         preemption=preemption, swap=swap,
                         host_pages=host_blocks)
+
+    def _clock(self) -> float:
+        return self.now
 
     # ------------------------------------------------------------ intake
     def submit(self, req: Request, *, arrival: float | None = None
@@ -1089,17 +1103,20 @@ def compare_engines(model: Model, params: Any,
     ``{"contiguous": {...}, "paged": {...}}``, e.g. ``{"paged": {"kernel":
     "gather"}}`` holds the oracle verdict over the dense-fallback pathway
     and ``{"paged": {"kernel": "paged"}}`` over the page-table kernel.
-    Both engines run on ``device``.  The reference's ``cluster`` form
-    (single paged engine vs a ``ClusterEngine``) waits for the port's
-    cluster slice and raises ``NotImplementedError``.
+    Both engines run on ``device``.
+
+    With ``cluster`` given (a dict of ``ClusterEngine`` kwargs, e.g.
+    ``{"replicas": 3, "routing": "random"}``), the comparison becomes one
+    paged engine against a ``ClusterEngine`` over the same geometry, both
+    on ``device``: routing moves requests between replicas, but sampled
+    tokens key on ``(seed, rid, step)``, so a cluster of any size, under
+    any routing policy, must reproduce the single engine's streams
+    exactly.  This is the routing oracle: a router that corrupted,
+    duplicated or dropped a request would break bit-identity here.
 
     Returns a ``core.verify.DualEnvReport`` whose verdicts CI gates on."""
     from repro_torch.core.verify import DualEnvHarness
 
-    if cluster is not None:
-        raise NotImplementedError(
-            "compare_engines(cluster=...) needs ClusterEngine, which the "
-            "port does not have yet")
     ek = engine_kwargs or {}
     contig_kw = dict(ek.get("contiguous", {}))
     paged_kw = dict(ek.get("paged", {}))
@@ -1126,5 +1143,19 @@ def compare_engines(model: Model, params: Any,
         return token_matrix(eng.run(requests()), n, max_new)
 
     harness = DualEnvHarness(repeats=repeats, warmup=0)
+    if cluster is not None:
+        # routing oracle: one paged engine against the cluster router
+        from repro_torch.serve.cluster import ClusterEngine  # avoid a cycle
+
+        cluster_kw = dict(cluster)
+
+        def run_cluster():
+            eng = ClusterEngine(model, params, slots=slots, max_len=max_len,
+                                block_size=block_size, chunk=chunk,
+                                device=device, **cluster_kw)
+            return token_matrix(eng.run(requests()), n, max_new)
+
+        return harness.compare("paged", run_paged,
+                               "cluster", run_cluster, rtol=1e-9, atol=0.5)
     return harness.compare("contiguous", run_contiguous,
                            "paged", run_paged, rtol=1e-9, atol=0.5)

@@ -12,17 +12,21 @@ each other.
   run equal to an uninterrupted one; cancellation; report keys.
 * Entry points default to the GPU and raise without one.
 """
+import gc
 import json
+import weakref
 
 import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_intra_op_thread  # noqa: F401
 from repro_torch.configs import ALL_ARCHS as T_ARCHS
 from repro_torch.configs import reduced as t_reduced
 from repro_torch.launch import serve as launcher
 from repro_torch.models import build as t_build
-from repro_torch.serve import (PagedServeEngine, Request, SamplingParams,
+from repro_torch.serve import (ClusterEngine, PagedServeEngine, Request,
+                               SamplingParams,
                                ServeEngine, token_matrix)
 
 ARCH = "deepseek-7b"
@@ -177,6 +181,40 @@ def test_swap_disabled_recomputes_and_stays_exact(port):
     assert rep["recompute_tokens"] > 0
     assert lo.req.out == want[0] and hi.req.out == want[1]
     eng.alloc.check()
+
+
+@pytest.mark.parametrize("kind", ["paged-swap", "gather", "cluster"])
+def test_dropped_engine_is_freed_without_the_collector(port, kind):
+    """An engine that has run a trace is gone once it is dropped, with the
+    collector off: none of its parts (the scheduler's clock, the prefix
+    cache's spill hooks) holds it in a reference cycle, so its caches and
+    page pool go with it.  A cluster's replicas go with the cluster."""
+    model, params = port
+    work = _integration_workload(model.cfg.vocab_size)
+    gc.collect()
+    gc.disable()
+    try:
+        if kind == "paged-swap":
+            eng, lo, hi, _ = _preempt_once(model, params)
+            assert eng.report()["swap_ins"] >= 1 and eng.swap_enabled
+            del lo, hi
+            parts = [eng]
+        elif kind == "gather":
+            eng = PagedServeEngine(model, params, kernel="gather",
+                                   device="cpu", **GEOM)
+            eng.run(_requests(work))
+            parts = [eng]
+        else:
+            eng = ClusterEngine(model, params, replicas=2, device="cpu",
+                                **GEOM)
+            eng.run(_requests(work))
+            assert not eng.has_work()
+            parts = [eng, *eng.replicas]
+        refs = [weakref.ref(p) for p in parts]
+        del eng, parts
+        assert [r() for r in refs] == [None] * len(refs)
+    finally:
+        gc.enable()
 
 
 def test_page_round_trip_through_host_is_bit_exact(port):

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_intra_op_thread  # noqa: F401
 from repro_torch.configs import ALL_ARCHS as T_ARCHS
 from repro_torch.configs import reduced as t_reduced
 from repro_torch.core import verify as tverify
@@ -365,9 +366,17 @@ def test_compare_engines_holds_both_pathways(port, kernel, sampled):
 
 
 def test_compare_engines_refuses_a_cluster(port):
+    """The cluster form runs (``tests/test_torch_cluster.py`` holds its
+    verdict); a cluster it cannot build is refused, as the reference's
+    ``ClusterEngine`` refuses it."""
     model, params = port
-    with pytest.raises(NotImplementedError, match="ClusterEngine"):
-        compare_engines(model, params, lambda: [], cluster={"replicas": 2},
+    work = _workload(model.cfg.vocab_size)
+    with pytest.raises(ValueError, match="replicas must be >= 1"):
+        compare_engines(model, params, lambda: _requests(work),
+                        cluster={"replicas": 0}, device="cpu")
+    with pytest.raises(ValueError, match="routing must be one of"):
+        compare_engines(model, params, lambda: _requests(work),
+                        cluster={"replicas": 2, "routing": "nearest"},
                         device="cpu")
 
 
@@ -456,9 +465,15 @@ def test_gather_report_keys_and_storage_match_reference(bridged):
 
 
 def test_cli_serves_the_gather_pathway(capsys):
-    launcher.main(["--device", "cpu", "--requests", "4", "--slots", "2",
-                   "--max-new", "4", "--shared-prefix", "16",
-                   "--kernel", "gather"])
+    """The gather pathway serves every request, and the audit flags it as
+    the reference's launcher does: a ``pathway-kernel`` error and exit 1."""
+    with pytest.raises(SystemExit) as exit_:
+        launcher.main(["--device", "cpu", "--requests", "4", "--slots", "2",
+                       "--max-new", "4", "--shared-prefix", "16",
+                       "--kernel", "gather"])
+    assert exit_.value.code == 1
     out = json.loads(capsys.readouterr().out)
     assert out["served"] == 4 and out["engine"] == "paged"
     assert out["kernel"] == "gather" and out["prefix_hit_rate"] > 0
+    assert not out["audit"]["gate_ok"]
+    assert [f["kind"] for f in out["audit"]["findings"]] == ["pathway-kernel"]

@@ -42,6 +42,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_intra_op_thread  # noqa: F401
 from repro_torch.configs import ALL_ARCHS as T_ARCHS
 from repro_torch.configs import reduced as t_reduced
 from repro_torch.models import build as t_build
@@ -404,13 +405,25 @@ def test_compare_engines_gives_the_reference_verdict():
 
 @pytest.mark.parametrize("kernel", ["paged", "gather"])
 def test_serve_cli_serves_moe_on_the_paged_engine(kernel, capsys):
+    """Both pathways serve; the audit passes the page table and flags the
+    gather pathway (``pathway-kernel``, exit 1), as the reference's
+    launcher does."""
     from repro_torch.launch.serve import main
-    main(["--device", "cpu", "--arch", "qwen3-moe-30b-a3b", "--requests",
-          "6", "--slots", "2", "--max-new", "4", "--shared-prefix", "16",
-          "--kernel", kernel])
+    argv = ["--device", "cpu", "--arch", "qwen3-moe-30b-a3b", "--requests",
+            "6", "--slots", "2", "--max-new", "4", "--shared-prefix", "16",
+            "--kernel", kernel]
+    if kernel == "paged":
+        main(argv)
+    else:
+        with pytest.raises(SystemExit) as exit_:
+            main(argv)
+        assert exit_.value.code == 1
     res = json.loads(capsys.readouterr().out)
     assert res["engine"] == "paged" and res["kernel"] == kernel
     assert res["served"] == 6 and res["prefix_hit_rate"] > 0
+    kinds = [f["kind"] for f in res["audit"]["findings"]]
+    assert kinds == ([] if kernel == "paged" else ["pathway-kernel"])
+    assert res["audit"]["gate_ok"] == (kernel == "paged")
 
 
 def test_train_cli_trains_and_resumes_moe(tmp_path):

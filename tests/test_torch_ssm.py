@@ -48,6 +48,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_intra_op_thread  # noqa: F401
 from repro_torch.configs import ALL_ARCHS as T_ARCHS
 from repro_torch.configs import reduced as t_reduced
 from repro_torch.configs.base import RunConfig, ShapeConfig, TrainConfig
