@@ -238,14 +238,48 @@ non-zero without printing a result:
                   own: exit code 0, the audit's gate passed, a Chrome trace
                   with one timeline per request.
 
-Every engine the serve, gather_serve and cluster phases build must leave
-``torch.cuda.memory_allocated()`` where it found it once deleted, with no
-help from the collector; each served model is freed by dropping it.
+33. vlm_reference, encdec_reference — (run after train_cli) reduced
+                  llama-3.2-vision-11b (128 tokens against 16 image
+                  tokens) and whisper-medium (128 frames, 16 decoder
+                  tokens), f32, every gate drawn nonzero: the loss, every
+                  gradient, ``prefill`` and four ``decode_step`` calls
+                  through the flash kernel against the same run with the
+                  plain version on the card (loss and gradients within
+                  2e-2 relative norm, logits within 1e-3).  The flash
+                  kernel's launches are counted by mode: causal for each
+                  vlm and decoder self layer, bidirectional for each
+                  encoder layer, once in the loss and once in the prefill.
+34. vlm_serve, encdec_serve — llama-3.2-vision-11b (11.52 B) and
+                  whisper-medium (0.811 B) at full width and depth, seeded
+                  bf16 weights, every gate drawn nonzero: a prefill of 2
+                  prompts (512 tokens against 1,600 image tokens; 64
+                  tokens against 1,500 frames), warm then timed, its flash
+                  launches counted (40 causal; 24 causal and none
+                  bidirectional, 1,500 frames missing the flash
+                  condition); 32 greedy ``decode_step`` calls, the first
+                  one's logits within 3e-2 of the logit scale of a
+                  teacher-forced forward of the prompt and its token,
+                  argmax equal up to near-ties; then the contiguous
+                  ``ServeEngine`` on 4 requests of 32-64 tokens, 16 new.
+35. vlm_train, encdec_train — llama-3.2-vision-11b at full width cut to
+                  one group (5 self layers, 1 cross block, 2.36 B), seq
+                  2048, batch 4, 1,600 image tokens; whisper-medium whole,
+                  1,500 frames, 448 decoder tokens, batch 8; remat full,
+                  4 steps of the default schedule: finite losses, the
+                  flash kernel's launches counted by mode (40 causal for
+                  the vlm; none for whisper, whose lengths miss the flash
+                  condition); one more step under ``torch.profiler``.
+
+Every engine the serve, gather_serve, cluster, vlm_serve and encdec_serve
+phases build must leave ``torch.cuda.memory_allocated()`` where it found
+it once deleted, with no help from the collector; each served model is
+freed by dropping it.
 
 Then the ``kernels`` summary line (the paged row with its design, launch
 floor and ``paged_timing`` shapes; the paged and flash rows also carry the
 moe runs' launches, the paged row the cluster runs' launches by policy and
-the every-row timing), the card's name
+the every-row timing, the flash row the vlm and encdec phases' launches
+by mode), the card's name
 and power limit as ``nvidia-smi`` reports them, and last ``{"ok": true,
 "device": ...}``.
 """
@@ -289,6 +323,7 @@ from repro_torch.kernels.ssd_scan import (  # noqa: E402
     ssd_workspace_elements)
 from repro_torch.models import build  # noqa: E402
 from repro_torch.models import params as P  # noqa: E402
+from repro_torch.models import stack  # noqa: E402
 from repro_torch.models.decode import decode_paged_chunk  # noqa: E402
 from repro_torch.neuro import cable  # noqa: E402
 from repro_torch.neuro import sim as neuro_sim  # noqa: E402
@@ -1199,7 +1234,7 @@ def run_steps(step_fn, state, host_batches, dev, metrics_out=None):
     losses, step_s = [], []
     for host_batch in host_batches:
         t0 = time.perf_counter()
-        batch = {k: torch.tensor(a, device=dev)
+        batch = {k: torch.as_tensor(a, device=dev)
                  for k, a in host_batch.items()}
         state, metrics = step_fn(state, batch)
         losses.append(float(metrics["loss"]))   # the step's host sync
@@ -1215,7 +1250,8 @@ def profiled_step(step_fn, state, host_batch, dev, spans=()):
     ms by kernel kind, the top kernels, device ms under each of
     ``spans``)."""
     from torch.profiler import ProfilerActivity, profile
-    batch = {k: torch.tensor(a, device=dev) for k, a in host_batch.items()}
+    batch = {k: torch.as_tensor(a, device=dev)
+             for k, a in host_batch.items()}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2912,6 +2948,372 @@ def phase_moe_train(dev) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ vlm, encdec
+
+VLM_ARCH, ENCDEC_ARCH = "llama-3.2-vision-11b", "whisper-medium"
+# the reference phases' lengths, multiples of 128 so every self-attention
+# takes the flash kernel: vlm tokens, whisper frames (16 decoder tokens)
+FAMILY_REF_LEN, FAMILY_REF_STEPS = 128, 4
+# serving: prompts a prefill (against 1,600 image tokens or 1,500 frames)
+FAMILY_PROMPT = {"vlm": 512, "encdec": 64}
+FAMILY_PREFILL_BATCH, FAMILY_DECODE_STEPS = 2, 32
+# decode vs teacher-forced forward, bf16: tests/test_archs.py::
+# test_prefill_decode_consistency's 3e-2, of the largest |logit|
+CONSISTENCY_TOL = 3e-2
+# training: vlm cut to one group (5 self layers, 1 cross block), whisper
+# whole; (sequence, batch): vlm tokens, whisper frames (448 decoder tokens)
+FAMILY_TRAIN = {"vlm": (2048, 4), "encdec": (1500, 8)}
+FAMILY_TRAIN_STEPS = 4
+
+
+def draw_gates(params: dict, seed: int) -> None:
+    """Each vlm gate drawn nonzero from the seed, in place: |gate| in [0.5,
+    1.5), either sign.  At init the gates are zero, every cross block is
+    then the identity and its path would carry no check."""
+    if "gate_attn" not in params.get("cross", {}):
+        return
+    gen = torch.Generator().manual_seed(seed)
+    for name in ("gate_attn", "gate_mlp"):
+        t = params["cross"][name]
+        mag = torch.rand(t.shape, generator=gen) + 0.5
+        sign = torch.randint(0, 2, t.shape, generator=gen) * 2 - 1
+        t.copy_(mag * sign)
+
+
+@contextlib.contextmanager
+def flash_launches_by_mode():
+    """The flash kernel's launches, counted by mode, for the model's calls
+    made inside: each call's mode is kept with the launches it added to
+    ``ops.LAUNCHES``, so a call that runs the plain version counts none."""
+    counts = {"causal": 0, "bidirectional": 0}
+    saved = ops.flash_attention
+
+    def counted(q, k, v, *, causal=True):
+        before = ops.LAUNCHES["flash_attention"]
+        out = saved(q, k, v, causal=causal)
+        counts["causal" if causal else "bidirectional"] += (
+            ops.LAUNCHES["flash_attention"] - before)
+        return out
+
+    ops.flash_attention = counted
+    try:
+        yield counts
+    finally:
+        ops.flash_attention = saved
+
+
+def expected_flash(cfg, ctx_len: int, tok_len: int) -> dict[str, int]:
+    """Flash launches of one forward: each self-attention whose length
+    meets the flash condition (``S % min(128, S) == 0``), the decoder's
+    (and the vlm's) causal, the encoder's over ``ctx_len`` frames not."""
+    def flash(n):
+        return n % min(128, n) == 0
+    enc = cfg.n_encoder_layers if cfg.family == "encdec" else 0
+    return {"causal": cfg.n_layers if flash(tok_len) else 0,
+            "bidirectional": enc if flash(ctx_len) else 0}
+
+
+def embed_name(cfg) -> str:
+    return "image_embed" if cfg.family == "vlm" else "audio_embed"
+
+
+def family_ref_run(model, params, batch, dev) -> tuple:
+    """Loss and every gradient, then ``prefill`` and ``FAMILY_REF_STEPS``
+    ``decode_step`` calls on seeded tokens: (loss, grads, logits of each
+    call)."""
+    loss, grads = loss_and_grads(model, params, batch)
+    prompt = {k: v for k, v in batch.items() if k != "labels"}
+    s = prompt["tokens"].shape[1]
+    logits, cache = model.prefill(params, prompt, s + FAMILY_REF_STEPS)
+    out = [logits]
+    toks = np.random.default_rng(SEED + 2).integers(
+        0, model.cfg.vocab_size, size=(FAMILY_REF_STEPS, 2, 1))
+    for i in range(FAMILY_REF_STEPS):
+        out.append(model.decode_step(
+            params, cache, torch.tensor(toks[i], device=dev),
+            torch.full((2,), s + i, dtype=torch.int32, device=dev)))
+    return loss, grads, out
+
+
+def phase_family_reference(arch, dev) -> dict:
+    """Reduced ``arch`` in f32, every gate drawn nonzero: the loss, every
+    gradient, ``prefill`` and four ``decode_step`` calls through the flash
+    kernel, against the same run with the plain version called on the card
+    (``plain_flash``): loss and gradients within ``GRAD_TOL`` (relative
+    norm, phase train_parity's), logits within 1e-3 (phase reference's).
+    Lengths are ``FAMILY_REF_LEN``, so every self-attention launches the
+    kernel: causal for the vlm's and the decoder's, bidirectional for the
+    whisper encoder's."""
+    cfg = reduced(ALL_ARCHS[arch])
+    model = build(cfg)
+    params = P.tree_map(lambda t: t.float(), model.init_params(
+        torch.Generator(device=dev).manual_seed(SEED), dev))
+    draw_gates(params, SEED)
+    batch = {k: v.float() if v.is_floating_point() else v
+             for k, v in model.sample_batch(ShapeConfig(
+                 "ref", "train", FAMILY_REF_LEN, 2), SEED, dev).items()}
+    with flash_launches_by_mode() as launches:
+        loss_k, grads_k, logits_k = family_ref_run(model, params, batch, dev)
+    with plain_flash():
+        loss_p, grads_p, logits_p = family_ref_run(model, params, batch, dev)
+    torch.cuda.synchronize()
+    tok_len = batch["tokens"].shape[1]
+    one = expected_flash(cfg, FAMILY_REF_LEN, tok_len)
+    want = {mode: 2 * n for mode, n in one.items()}   # the loss and prefill
+    check(launches == want, f"{arch}: flash launches {launches}, expected "
+                            f"{want} (one forward and one prefill)")
+    loss_err = rel_norm(loss_k, loss_p)
+    grad_errs = [rel_norm(a, b) for a, b in zip(grads_k, grads_p)]
+    logit_err = max(float((a - b).abs().max())
+                    for a, b in zip(logits_k, logits_p))
+    check(bool(torch.isfinite(loss_k)) and loss_err <= GRAD_TOL,
+          f"{arch}: loss through the kernel {float(loss_k)} vs plain "
+          f"{float(loss_p)}")
+    check(max(grad_errs) <= GRAD_TOL,
+          f"{arch}: gradients through the kernel vs plain: max rel "
+          f"{max(grad_errs)}")
+    check(all(bool(torch.isfinite(t).all()) and t.shape == (
+        2, cfg.padded_vocab) for t in logits_k),
+          f"{arch}: prefill/decode logits not finite or misshapen")
+    check(logit_err <= 1e-3, f"{arch}: prefill/decode logits through the "
+                             f"kernel vs plain: max |dlogit| {logit_err}")
+    out = {"phase": f"{cfg.family}_reference", "arch": cfg.name,
+           "dtype": "float32", "layers": cfg.n_layers,
+           "encoder_layers": cfg.n_encoder_layers, "tokens": tok_len,
+           "context": (cfg.n_image_tokens if cfg.family == "vlm"
+                       else FAMILY_REF_LEN),
+           "loss_kernel": float(loss_k), "loss_plain": float(loss_p),
+           "loss_rel_err": loss_err, "grad_leaves": len(grad_errs),
+           "grad_max_rel_norm_err": max(grad_errs), "grad_tolerance": GRAD_TOL,
+           "decode_steps": FAMILY_REF_STEPS,
+           "max_abs_logit_err": logit_err, "logit_tolerance": 1e-3,
+           "flash_launches": launches}
+    emit(out)
+    return launches
+
+
+def consistency(got, want) -> tuple[bool, float, float]:
+    """``got`` within ``CONSISTENCY_TOL`` of ``want``'s largest |logit|,
+    and each row's argmax equal unless ``want``'s top two lie within twice
+    that.  tests/test_archs.py's band is per element (3e-2 + 3e-2|logit|),
+    which bf16 misses on small logits: the hidden state's rounding moves
+    every logit by an amount set by the largest (the reference misses it
+    on its own tree, ROADMAP caveat b, and so does the port at reduced size
+    in 1 of 1,024 logits at 16 tokens; both agree within 2e-6 in f32).
+    Returns (ok, max |dlogit|, the share of logits inside the per-element
+    band)."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    tol = CONSISTENCY_TOL * float(want.abs().max())
+    top2 = torch.topk(want, 2, dim=-1).values
+    near_tie = top2[:, 0] - top2[:, 1] <= 2 * tol
+    same = got.argmax(-1) == want.argmax(-1)
+    inside = float((err <= CONSISTENCY_TOL * (1 + want.abs())).float().mean())
+    return (float(err.max()) <= tol and bool((same | near_tie).all()),
+            float(err.max()), inside)
+
+
+def family_prompt_batch(model, dev) -> dict:
+    """``FAMILY_PREFILL_BATCH`` prompts of ``FAMILY_PROMPT`` tokens with
+    their context: 1,600 image tokens or 1,500 audio frames, seeded."""
+    cfg = model.cfg
+    n = FAMILY_PROMPT[cfg.family]
+    ctx = cfg.n_audio_frames if cfg.family == "encdec" else n
+    batch = model.sample_batch(ShapeConfig("p", "prefill", ctx,
+                                           FAMILY_PREFILL_BATCH), SEED, dev)
+    batch["tokens"] = batch["tokens"][:, :n].contiguous()
+    return batch
+
+
+def phase_family_serve(arch, dev) -> dict:
+    """``arch`` at full width and depth, seeded bf16 weights, every gate
+    drawn nonzero: two prefills of the prompt batch (warm, then timed, its
+    flash launches counted), ``FAMILY_DECODE_STEPS`` greedy ``decode_step``
+    calls, the first one's logits held to a teacher-forced forward of the
+    prompt and its token (``consistency``); then the contiguous
+    ``ServeEngine`` on four requests of 32-64 tokens, 16 new each."""
+    cfg = ALL_ARCHS[arch]
+    model = build(cfg)
+    phase_t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(SEED),
+                               dev)
+    draw_gates(params, SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - phase_t0
+    batch = family_prompt_batch(model, dev)
+    n = batch["tokens"].shape[1]
+    cache_len = n + FAMILY_DECODE_STEPS + 1
+    model.prefill(params, batch, cache_len)               # warm-up
+    torch.cuda.synchronize()
+    with flash_launches_by_mode() as launches:
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, batch, cache_len)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+    want = expected_flash(cfg, batch[embed_name(cfg)].shape[1], n)
+    check(launches == want, f"{arch}: prefill flash launches {launches}, "
+                            f"expected {want}")
+    tok = logits.argmax(-1)[:, None]
+    first_tok = tok
+    t0 = time.perf_counter()
+    steps = []
+    for i in range(FAMILY_DECODE_STEPS):
+        step_logits = model.decode_step(
+            params, cache, tok,
+            torch.full((tok.shape[0],), n + i, dtype=torch.int32,
+                       device=dev))
+        if i == 0:
+            first = step_logits
+        tok = step_logits.argmax(-1)[:, None]
+        steps.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    out_toks = torch.cat(steps, 1)
+    check(bool(torch.isfinite(first).all())
+          and bool(((out_toks >= 0) & (out_toks < cfg.padded_vocab)).all()),
+          f"{arch}: decode gave non-finite logits or tokens outside the "
+          f"vocab")
+    with torch.no_grad():
+        forced = dict(batch, tokens=torch.cat([batch["tokens"], first_tok], 1))
+        full, _ = stack.forward(cfg, params, forced)
+    ok, err, inside = consistency(first, full[:, -1])
+    scale = float(full[:, -1].abs().max())
+    check(ok, f"{arch}: first decode step vs teacher-forced forward: max "
+              f"|dlogit| {err} against {CONSISTENCY_TOL} of the logit scale "
+              f"{scale}, or argmax apart")
+    del full, cache, forced
+
+    warm = ServeEngine(model, params, slots=1, max_len=32, device=dev)
+    warm.run([Request(rid=0, prompt=list(range(8)), max_new=2)])
+    del warm
+    before = torch.cuda.memory_allocated()
+    eng = ServeEngine(model, params, slots=SSM_SLOTS, max_len=SSM_MAX_LEN,
+                      device=dev)
+    reqs = ssm_requests(cfg)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    done = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    eng_launches = dict(ops.LAUNCHES)
+    rep = eng.report()
+    check(rep["served"] == SSM_REQUESTS and rep["engine"] == "contiguous",
+          f"{arch}: {rep}")
+    for r in done:
+        check(len(r.out) == SSM_MAX_NEW and all(
+            0 <= t < cfg.padded_vocab for t in r.out),
+            f"{arch}: request {r.rid} gave {r.out}")
+    check(not any(eng_launches.values()),
+          f"{arch}: the contiguous engine launched {eng_launches}")
+    prompt_tokens = sum(len(r.prompt) for r in reqs)
+    engine_steps = prompt_tokens + rep["decode_steps"]
+    del eng
+    check_freed(before, f"the {arch} engine")
+    b = FAMILY_PREFILL_BATCH
+    out = {"phase": f"{cfg.family}_serve", "arch": cfg.name,
+           "params": sum(t.numel() for t in P.leaves(params)),
+           "layers": cfg.n_layers, "encoder_layers": cfg.n_encoder_layers,
+           "d_model": cfg.d_model, "init_s": init_s,
+           "prompts": b, "prompt_tokens": n,
+           "context": batch[embed_name(cfg)].shape[1],
+           "prefill_s": prefill_s,
+           "prefill_tokens_per_s": b * n / prefill_s,
+           "prefill_flash_launches": launches,
+           "decode_steps": FAMILY_DECODE_STEPS,
+           "decode_ms_per_step": 1e3 * decode_s / FAMILY_DECODE_STEPS,
+           "decode_tokens_per_s": b * FAMILY_DECODE_STEPS / decode_s,
+           "consistency_max_abs_err": err, "logit_scale": scale,
+           "consistency_tol_of_scale": CONSISTENCY_TOL,
+           "share_inside_per_element_band": inside,
+           "engine": {"requests": SSM_REQUESTS, "slots": SSM_SLOTS,
+                      "prompt_tokens": prompt_tokens, "wall_s": wall,
+                      "engine_steps": engine_steps,
+                      "ms_per_step": 1e3 * wall / engine_steps,
+                      "tokens_out_per_s": rep["tokens_out"] / wall,
+                      "launches": eng_launches,
+                      "first_tokens": {r.rid: r.out[:4] for r in done}},
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "phase_s": time.perf_counter() - phase_t0}
+    emit(out)
+    return launches
+
+
+def phase_family_train(arch, dev) -> dict:
+    """``arch`` at full width (the vlm cut to one group: 5 self layers and
+    one cross block), remat full, the first ``FAMILY_TRAIN_STEPS`` steps of
+    the default schedule: tokens and labels from the port's
+    ``DataPipeline`` (whisper's 448 decoder tokens), image or audio
+    embeddings from ``Model.sample_batch``, every gate drawn nonzero.
+    Finite losses; the flash kernel's launches counted (counts zeroed just
+    before): twice a self layer a step where the length meets the flash
+    condition, so none for whisper's 1,500 frames and 448 tokens; one more
+    step under ``torch.profiler``."""
+    cfg = ALL_ARCHS[arch]
+    if cfg.family == "vlm":
+        cfg = dataclasses.replace(cfg, n_layers=cfg.cross_every)
+    seq, b = FAMILY_TRAIN[cfg.family]
+    tok_len = cfg.decoder_train_len if cfg.family == "encdec" else seq
+    model = build(cfg)
+    step_fn = make_train_step(model, RunConfig(
+        cfg, ShapeConfig("train", "train", seq, b), TrainConfig(remat="full")))
+    data = DataPipeline(DataConfig(cfg.vocab_size, tok_len, b, seed=SEED))
+    batches = []
+    for i in range(FAMILY_TRAIN_STEPS + 1):
+        host = dict(next(data)[1])
+        host[embed_name(cfg)] = model.sample_batch(
+            ShapeConfig("train", "train", seq, b), SEED + i,
+            "cpu")[embed_name(cfg)]
+        batches.append(host)
+    data.close()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = init_train_state(model, torch.Generator(device=dev).manual_seed(
+        SEED), dev)
+    draw_gates(state.params, SEED)
+    draw_gates(state.opt.master, SEED)    # AdamW's fp32 copy, the same draw
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in P.leaves(state.params))
+    ops.reset_launches()
+    with flash_launches_by_mode() as by_mode:
+        state, losses, step_s = run_steps(
+            step_fn, state, batches[:FAMILY_TRAIN_STEPS], dev)
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    check(all(np.isfinite(losses)), f"{arch}: non-finite loss {losses}")
+    one = expected_flash(cfg, seq, tok_len)
+    want = {mode: 2 * n * FAMILY_TRAIN_STEPS for mode, n in one.items()}
+    check(by_mode == want and launches["flash_attention"] == sum(
+        want.values()), f"{arch}: flash launches {by_mode}, expected {want} "
+                        f"(forward and remat recompute)")
+    check(launches["paged_attention"] == 0, "paged attention ran in training")
+    steady_ms = statistics.median(step_s[1:]) * 1e3
+    state, device_ms, by_kind, top, spans = profiled_step(
+        step_fn, state, batches[FAMILY_TRAIN_STEPS], dev, ("adamw_update",))
+    del state
+    emit({"phase": f"{cfg.family}_train", "arch": cfg.name,
+          "layers": cfg.n_layers, "encoder_layers": cfg.n_encoder_layers,
+          "d_model": cfg.d_model, "params": n_params,
+          "seq": seq, "tokens": tok_len, "batch": b, "remat": "full",
+          "init_s": init_s, "losses": losses,
+          "loss_fell": losses[-1] < losses[0],
+          "step_ms": [1e3 * t for t in step_s],
+          "steady_ms_per_step": steady_ms,
+          "tokens_per_s": tok_len * b / steady_ms * 1e3,
+          "context_per_s": seq * b / steady_ms * 1e3,
+          "peak_mem_gb": peak_gb, "flash_launches": by_mode,
+          "launches": launches,
+          "profile": {"device_ms_per_step": device_ms,
+                      "device_busy_share": device_ms / steady_ms,
+                      "flash_kernel_ms_per_step": by_kind.get(
+                          "flash_attention", 0.0),
+                      "span_ms": spans, "ms_by_kind": by_kind,
+                      "top_kernels_ms": top}})
+    return by_mode
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2958,6 +3360,16 @@ def main() -> int:
     moe_train_launches = phase_moe_train(dev)
     torch.cuda.empty_cache()
     phase_train_cli()
+    family = {}
+    for arch in (VLM_ARCH, ENCDEC_ARCH):
+        family[arch] = {"reference": phase_family_reference(arch, dev)}
+        torch.cuda.empty_cache()
+    for arch in (VLM_ARCH, ENCDEC_ARCH):
+        family[arch]["serve_prefill"] = phase_family_serve(arch, dev)
+        torch.cuda.empty_cache()
+    for arch in (VLM_ARCH, ENCDEC_ARCH):
+        family[arch]["train"] = phase_family_train(arch, dev)
+        torch.cuda.empty_cache()
     flash_err, flash = phase_flash_timing(dev)
     torch.cuda.empty_cache()
     phase_ssd_kernel(dev)
@@ -2994,7 +3406,9 @@ def main() -> int:
             "library_ms", "bound_ms", "bound_by")}
             for sh in paged_timing["shapes"]]},
         "flash_attention": {
-        "moe_launches": moe_train_launches["flash_attention"]},
+        "moe_launches": moe_train_launches["flash_attention"],
+        "vlm_launches": family[VLM_ARCH],
+        "encdec_launches": family[ENCDEC_ARCH]},
         "hh_step": {
         "epoch_kernel": "cable_epoch", "epoch_launches": epoch_launches,
         "epoch_ms": epoch["ms"], "epoch_plain_ms": epoch["plain_ms"],

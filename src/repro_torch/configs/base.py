@@ -33,9 +33,8 @@ class ModelConfig:
       vlm     — decoder-only with cross-attention blocks every
                 ``cross_every`` layers attending to stubbed patch embeddings
 
-    The port builds the dense, moe, ssm and hybrid families; the other
-    families' fields are kept so every assigned arch is described
-    identically in both packages.
+    The port builds every family; every field is kept so each assigned
+    arch is described identically in both packages.
     """
 
     name: str
@@ -96,7 +95,8 @@ class ModelConfig:
         return self.d_inner // self.ssm_head_dim
 
     def param_count(self) -> int:
-        """Analytic parameter count of the families the port builds."""
+        """Analytic parameter count (the reference's
+        ``stack.param_count``)."""
         from repro_torch.models import params as P  # local: avoid a cycle
 
         return P.count(P.param_specs(self))

@@ -7,10 +7,11 @@ Mirrors ``repro.launch.serve`` flag for flag, and adds ``--device``.  Like
 the reference it serves ``reduced(arch)`` with seeded random weights (here
 from a ``torch.Generator``).  Runs on the GPU unless ``--device cpu`` is
 given, and fails when asked for a GPU that is not there.  ``--engine
-contiguous`` serves through the oracle engine; the ssm and hybrid archs
-(``mamba2-2.7b``, ``zamba2-2.7b``) always do, as in the reference, and the
-report's ``engine`` says which ran; the dense and moe archs serve
-through the paged engine.  ``--kernel gather`` serves the paged engine
+contiguous`` serves through the oracle engine; the ssm, hybrid, vlm and
+encdec archs (``mamba2-2.7b``, ``zamba2-2.7b``, ``llama-3.2-vision-11b``,
+``whisper-medium``) always do, as in the reference, and the report's
+``engine`` says which ran; the dense and moe archs serve through the paged
+engine.  ``--kernel gather`` serves the paged engine
 through its dense working-cache pathway instead of the page table (the
 report's ``kernel`` says which).
 

@@ -12,7 +12,12 @@ absent:
 Any arch of the dense, moe, ssm and hybrid families trains
 (``granite-moe-1b-a400m``, ``qwen3-moe-30b-a3b``, ``mamba2-2.7b``,
 ``zamba2-2.7b``); on a card attention runs the flash kernel and the scans
-the SSD kernel.
+the SSD kernel.  The vlm and encdec archs (``llama-3.2-vision-11b``,
+``whisper-medium``) are refused: their batches carry image or audio
+embeddings, and the data pipeline yields tokens and labels only, as the
+reference's does (its launcher fails on the missing embeddings).  They
+train through ``Model.loss`` and ``train.step.make_train_step`` on batches
+from ``Model.sample_batch``.
 
 Not ported: the device mesh and its wire-up, the environment manifest, the
 HLO attestation of the compiled step and ``RunAudit.finish``.  They belong
@@ -42,6 +47,8 @@ from repro_torch.serve.engine import resolve_device
 from repro_torch.train.step import init_train_state, make_train_step
 
 DEFAULT_OUT = str(Path(tempfile.gettempdir()) / "repro_torch_train")
+# the families whose batches need more than the pipeline's tokens and labels
+MISSING_EMBEDS = {"vlm": "image_embed", "encdec": "audio_embed"}
 
 
 def train(arch: str, *, smoke: bool = True, steps: int = 20,
@@ -55,8 +62,14 @@ def train(arch: str, *, smoke: bool = True, steps: int = 20,
     if production_mesh:
         raise ValueError("the production mesh belongs to the multi-GPU "
                          "slice of the port; this launcher runs one device")
-    dev = resolve_device(device)
     cfg = reduced(resolve_arch(arch)) if smoke else resolve_arch(arch)
+    embeds = MISSING_EMBEDS.get(cfg.family)
+    if embeds:
+        raise ValueError(
+            f"{cfg.name} ({cfg.family}) trains on {embeds}, which the data "
+            f"pipeline does not yield (tokens and labels only); train it "
+            f"through Model.loss on Model.sample_batch batches")
+    dev = resolve_device(device)
     shape = ShapeConfig("train", "train", seq_len, global_batch)
     horizon = total_steps or steps  # LR schedule horizon: fixed across
     # restarts so a resumed run follows the identical schedule

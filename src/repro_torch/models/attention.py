@@ -1,15 +1,17 @@
-"""GQA attention: full-sequence self-attention (training) and the decode
-paths (the paged serving path and the contiguous oracle).
+"""GQA attention: full-sequence attention (training, prefill, the
+encoder, cross-attention) and the decode paths (the paged serving path and
+the contiguous oracle).
 
 Ports ``repro.models.attention`` at tp=1:
 
-* ``full_attention`` — causal self-attention over whole sequences from
-  position 0, as the dense stack calls it.  Calls that meet the
-  reference's flash condition go to ``kernels.ops.flash_attention`` (the
-  CUDA kernel on a card, its plain version on the CPU); the rest take the
-  reference's q-chunked ``_attend``.  Cross-attention, non-causal
-  (encoder) attention and ``pos0 > 0`` wait for the vlm/encdec slice;
-  ``return_kv`` hands a prefill its cache rows.
+* ``full_attention`` — attention over whole sequences from position 0:
+  causal or bidirectional self-attention, or cross-attention from ``x``
+  to a context ``kv_x`` (image patches, encoder states).  Self-attention
+  calls that meet the reference's flash condition go to
+  ``kernels.ops.flash_attention`` (the CUDA kernel on a card, its plain
+  version on the CPU), causal or not; the rest, cross-attention always,
+  take the reference's q-chunked ``_attend``.  ``return_kv`` hands a
+  prefill its cache rows.
 
 * ``paged_chunk_decode_attention`` — C query tokens per lane, KV written
   and attended through each lane's page table (the paged engine's step);
@@ -19,7 +21,8 @@ Ports ``repro.models.attention`` at tp=1:
   per-slot cache (the paged engine's ``kernel="gather"`` pathway); plain
   torch ops, as the reference's jnp.
 * ``decode_attention`` — one token against a dense per-slot cache (the
-  contiguous ``ServeEngine``, the paged engine's oracle).
+  contiguous ``ServeEngine``, the paged engine's oracle), or read-only
+  against a cross-attention cache.
 
 Caches and pools are updated **in place** (the reference returns new
 arrays, which JAX donates and re-adopts); these functions return only the
@@ -39,68 +42,105 @@ from repro_torch.models.layers import head_geom, rmsnorm, rope
 NEG_INF = -1e9
 
 
-def _project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor,
-                 pos: torch.Tensor
-                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Self-attention projections: q [B,S,H,hd], k and v [B,S,KV,hd], with
-    the optional per-head q/k norm and RoPE at positions ``pos`` [S]."""
+def promoted_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` in the two operands' common dtype, as ``jnp.matmul``
+    promotes: a bf16 image embedding against f32 weights is an f32
+    product."""
+    dtype = torch.promote_types(a.dtype, w.dtype)
+    return a.to(dtype) @ w.to(dtype)
+
+
+def cross_kv(cfg: ModelConfig, p: dict, ctx: torch.Tensor
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """A context's raw key and value projections ``[B, Sk, KV, hd]``, with
+    neither norm nor RoPE: a cross-attention cache's rows."""
     geom = head_geom(cfg)
-    hd, kv = geom.head_dim, geom.n_kv
+    b, sk, _ = ctx.shape
+    return (promoted_matmul(ctx, p["wk"]).reshape(b, sk, geom.n_kv,
+                                                  geom.head_dim),
+            promoted_matmul(ctx, p["wv"]).reshape(b, sk, geom.n_kv,
+                                                  geom.head_dim))
+
+
+def _project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                 pos: torch.Tensor, kv_x: torch.Tensor | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Projections: q [B,Sq,H,hd] from ``x``, k and v [B,Sk,KV,hd] from
+    ``kv_x`` (``x`` itself for self-attention), with the optional per-head
+    q/k norm.  RoPE at positions ``pos`` [Sq] turns q, and k only in
+    self-attention: cross-attention keys carry no position."""
+    geom = head_geom(cfg)
+    hd = geom.head_dim
     b, s, _ = x.shape
     q = (x @ p["wq"]).reshape(b, s, geom.h_run, hd)
-    k = (x @ p["wk"]).reshape(b, s, kv, hd)
-    v = (x @ p["wv"]).reshape(b, s, kv, hd)
+    if kv_x is None:
+        k = (x @ p["wk"]).reshape(b, s, geom.n_kv, hd)
+        v = (x @ p["wv"]).reshape(b, s, geom.n_kv, hd)
+    else:
+        k, v = cross_kv(cfg, p, kv_x)
     if cfg.qk_norm:
         q = rmsnorm(p["q_scale"], q, cfg.norm_eps)
         k = rmsnorm(p["k_scale"], k, cfg.norm_eps)
     if cfg.rope_theta > 0:
         q = rope(q, pos, cfg.rope_theta)
-        k = rope(k, pos, cfg.rope_theta)
+        if kv_x is None:
+            k = rope(k, pos, cfg.rope_theta)
     return q, k, v
 
 
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            mask: torch.Tensor, hd: int) -> torch.Tensor:
+            mask: torch.Tensor | None, hd: int) -> torch.Tensor:
     """q [B,Sq,H,hd], k/v [B,Sk,H,hd] (kv repeated to the q heads) ->
     [B,Sq,H,hd].  fp32 scores and softmax; P rounded to v's dtype before
-    P·V, as the reference's jnp path does."""
+    P·V, as the reference's jnp path does.  ``mask`` None attends every
+    key."""
     scores = torch.einsum("bqhd,bshd->bhqs", q.float(), k.float())
     scores = scores * (hd ** -0.5)
-    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    if mask is not None:
+        scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     return torch.einsum("bhqs,bshd->bqhd", probs, v)
 
 
 def full_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
+                   kv_x: torch.Tensor | None = None, causal: bool = True,
                    chunk: int = 1024, return_kv: bool = False):
-    """Causal self-attention over whole sequences from position 0:
-    x [B,S,D] -> y [B,S,D]; with ``return_kv`` also the post-RoPE
-    ``(k, v)`` [B,S,KV,hd] before the kv repeat, for a prefill's cache.
+    """Attention over whole sequences from position 0: x [B,S,D] -> y
+    [B,S,D]; with ``return_kv`` also ``(k, v)`` [B,Sk,KV,hd] before the kv
+    repeat (post-RoPE for self-attention), for a prefill's cache.
+
+    ``kv_x`` [B,Sk,D] makes it cross-attention: q from ``x`` at positions
+    ``0..S-1``, k and v from ``kv_x`` unroped.  ``causal`` False attends
+    every key (the encoder, cross-attention).
 
     kv is repeated to the q-head count and every head runs as one row of a
     ``[B·H, S, hd]`` problem.  Where the reference would take its flash
-    kernel (``S % min(128, S) == 0``; pos0 = 0, self-attention and tp = 1
-    always hold here), the call goes to ``kops.flash_attention``.  Other
-    lengths take ``_attend``, split into query chunks of ``chunk`` rows
-    when S is a larger multiple of it, each chunk recomputed in the
-    backward (the reference's remat of its scan body)."""
+    kernel (self-attention with ``S % min(128, S) == 0``; pos0 = 0 and
+    tp = 1 always hold here), the call goes to ``kops.flash_attention``
+    with ``causal`` as given.  Other calls take ``_attend``, split into
+    query chunks of ``chunk`` rows when S is a larger multiple of it, each
+    chunk recomputed in the backward (the reference's remat of its scan
+    body)."""
     geom = head_geom(cfg)
     hd, h = geom.head_dim, geom.h_run
     b, s, _ = x.shape
     pos = torch.arange(s, device=x.device)
-    q, k, v = _project_qkv(cfg, p, x, pos)
+    q, k, v = _project_qkv(cfg, p, x, pos, kv_x)
     k_r = k.repeat_interleave(geom.g_pad, dim=2)
     v_r = v.repeat_interleave(geom.g_pad, dim=2)
 
-    if s % min(128, s) == 0:
+    if kv_x is None and s % min(128, s) == 0:
         def heads_first(t):
             return t.transpose(1, 2).reshape(b * h, s, hd).contiguous()
         out = kops.flash_attention(heads_first(q), heads_first(k_r),
-                                   heads_first(v_r), causal=True)
+                                   heads_first(v_r), causal=causal)
         out = out.reshape(b, h, s, hd).transpose(1, 2)
     else:
+        k_pos = torch.arange(k.shape[1], device=x.device)
+
         def block(q_blk: torch.Tensor, q_pos: torch.Tensor) -> torch.Tensor:
-            mask = (pos[None, :] <= q_pos[:, None])[None, None]
+            mask = ((k_pos[None, :] <= q_pos[:, None])[None, None]
+                    if causal else None)
             return _attend(q_blk, k_r, v_r, mask, hd)
 
         if s > chunk and s % chunk == 0:
@@ -258,35 +298,41 @@ def paged_chunk_decode_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
 
 def decode_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
                      k_cache: torch.Tensor, v_cache: torch.Tensor,
-                     pos: torch.Tensor) -> torch.Tensor:
-    """Single-token decode: x [B,1,D]; caches [B,Smax,KV,hd] (written in
-    place at ``pos``); pos [B].  Returns y [B,1,D]."""
+                     pos: torch.Tensor, *,
+                     update_cache: bool = True) -> torch.Tensor:
+    """Single-token decode: x [B,1,D]; caches [B,Smax,KV,hd]; pos [B].
+    Writes the token's K/V in place at ``pos`` and attends rows up to it;
+    with ``update_cache`` False the caches are read only and every row is
+    attended (cross-attention: q still turns at ``pos``).  Returns
+    y [B,1,D]."""
     geom = head_geom(cfg)
     hd, kv, g = geom.head_dim, geom.n_kv, geom.group
     b = x.shape[0]
     s_max = k_cache.shape[1]
 
     q = (x @ p["wq"]).reshape(b, 1, kv, g, hd)
-    k_new = (x @ p["wk"]).reshape(b, 1, kv, hd)
-    v_new = (x @ p["wv"]).reshape(b, 1, kv, hd)
     if cfg.qk_norm:
         q = rmsnorm(p["q_scale"], q, cfg.norm_eps)
-        k_new = rmsnorm(p["k_scale"], k_new, cfg.norm_eps)
     if cfg.rope_theta > 0:
-        posb = pos[:, None]
-        q = rope(q.reshape(b, 1, kv * g, hd), posb,
+        q = rope(q.reshape(b, 1, kv * g, hd), pos[:, None],
                  cfg.rope_theta).reshape(b, 1, kv, g, hd)
-        k_new = rope(k_new, posb, cfg.rope_theta)
 
-    lanes = torch.arange(b, device=x.device)
-    k_cache[lanes, pos.long()] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[lanes, pos.long()] = v_new[:, 0].to(v_cache.dtype)
-    valid = torch.arange(s_max, device=x.device)[None, :] <= pos[:, None]
-
+    if update_cache:
+        k_new = (x @ p["wk"]).reshape(b, 1, kv, hd)
+        v_new = (x @ p["wv"]).reshape(b, 1, kv, hd)
+        if cfg.qk_norm:
+            k_new = rmsnorm(p["k_scale"], k_new, cfg.norm_eps)
+        if cfg.rope_theta > 0:
+            k_new = rope(k_new, pos[:, None], cfg.rope_theta)
+        lanes = torch.arange(b, device=x.device)
+        k_cache[lanes, pos.long()] = k_new[:, 0].to(k_cache.dtype)
+        v_cache[lanes, pos.long()] = v_new[:, 0].to(v_cache.dtype)
     scores = torch.einsum("bkgh,bskh->bkgs", q[:, 0].float(),
                           k_cache.float()) * (hd ** -0.5)
-    scores = torch.where(valid[:, None, None, :], scores,
-                         torch.full_like(scores, NEG_INF))
+    if update_cache:
+        valid = torch.arange(s_max, device=x.device)[None, :] <= pos[:, None]
+        scores = torch.where(valid[:, None, None, :], scores,
+                             torch.full_like(scores, NEG_INF))
     # fp32 softmax weights, one rounding after the P·V product
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgs,bskh->bkgh", probs,

@@ -2,9 +2,10 @@
 single-token step, the paged chunk step, their cache declarations, and
 fused token selection.
 
-Ports the dense, moe, ssm and hybrid branches of ``repro.models.decode``.
-``prefill`` and ``decode_step`` serve all four families (the hybrid's
-attention cache holds one layer per group, for the shared block); the
+Ports ``repro.models.decode``.  ``prefill`` and ``decode_step`` serve
+every family (the hybrid's attention cache holds one layer per group, for
+the shared block; vlm and encdec add a read-only cross cache of the
+image's or the encoder's K/V projections, unroped); the
 chunk steps (``decode_chunk`` over the dense per-slot cache, the gather
 pathway's; ``decode_paged_chunk`` over the page pool) serve the families
 with an attention cache, dense and moe.  A moe step routes every row of
@@ -35,14 +36,16 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import params as P
 from repro_torch.models.attention import (chunk_decode_attention,
-                                          decode_attention, dense_write_index,
-                                          full_attention,
+                                          cross_kv, decode_attention,
+                                          dense_write_index, full_attention,
                                           paged_chunk_decode_attention,
                                           paged_write_index)
-from repro_torch.models.layers import (embed_tokens, head_geom, logits_from,
-                                       rmsnorm, swiglu)
+from repro_torch.models.layers import (embed_tokens, gelu_mlp, head_geom,
+                                       logits_from, rmsnorm,
+                                       sinusoidal_positions, swiglu)
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.ssm import conv_channels, mamba_block, mamba_decode
+from repro_torch.models.stack import cross_block, encoder, gated
 
 ATTENTION_CACHE = ("dense", "moe")
 
@@ -99,7 +102,9 @@ def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> dict[str, Any]:
     """Per-slot caches of the contiguous engine: KV ``(layers, batch, seq,
     kv, hd)`` for dense and moe; conv tail ``(layers, batch, W-1, CC)``
     and fp32 SSM state ``(layers, batch, H, P, N)`` for ssm; both for
-    hybrid, whose KV cache has one layer per group."""
+    hybrid, whose KV cache has one layer per group.  vlm and encdec add a
+    ``cross`` KV cache, one layer per cross block, ``n_image_tokens`` or
+    ``n_audio_frames`` long."""
     fam = cfg.family
     if fam in ATTENTION_CACHE:
         return {"self": _kv_cache_spec(cfg, cfg.n_layers, batch, seq_len)}
@@ -109,8 +114,15 @@ def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> dict[str, Any]:
         groups, per = _groups(cfg)
         return {"ssm": _ssm_cache_spec(cfg, groups * per, batch),
                 "self": _kv_cache_spec(cfg, groups, batch, seq_len)}
-    raise ValueError(f"cache_specs: the port serves the dense, moe, ssm "
-                     f"and hybrid families, got {fam!r}")
+    if fam == "vlm":
+        return {"self": _kv_cache_spec(cfg, cfg.n_layers, batch, seq_len),
+                "cross": _kv_cache_spec(cfg, cfg.n_layers // cfg.cross_every,
+                                        batch, cfg.n_image_tokens)}
+    if fam == "encdec":
+        return {"self": _kv_cache_spec(cfg, cfg.n_layers, batch, seq_len),
+                "cross": _kv_cache_spec(cfg, cfg.n_layers, batch,
+                                        cfg.n_audio_frames)}
+    raise ValueError(f"cache_specs: unknown family {fam!r}")
 
 
 def paged_cache_specs(cfg: ModelConfig, num_blocks: int,
@@ -134,7 +146,9 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict,
     """Full-sequence prefill: (last-position logits [B, Vpad] fp32, cache).
     The cache is the one ``cache_specs`` declares, KV rows for the prompt's
     positions (zero-padded to ``cache_len`` when it is longer: decode
-    headroom) and the SSM layers' conv tails and final states."""
+    headroom), the SSM layers' conv tails and final states, and the cross
+    blocks' K/V of the image embeddings or the encoder's states, as long
+    as the context (never padded)."""
     fam = cfg.family
     x = embed_tokens(params["embed"], batch["tokens"])
     s = x.shape[1]
@@ -148,17 +162,24 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict,
         ssms.append(st)
         return x + y
 
-    ks, vs, convs, ssms = [], [], [], []
+    def self_attention(x: torch.Tensor, p: dict, h: torch.Tensor
+                       ) -> torch.Tensor:
+        a, (k, v) = full_attention(cfg, p, h, return_kv=True)
+        ks.append(k)
+        vs.append(v)
+        return x + a
+
+    def cross_cache(p: dict, ctx: torch.Tensor) -> None:
+        ck, cv = cross_kv(cfg, p, ctx)
+        cks.append(ck)
+        cvs.append(cv)
+
+    ks, vs, convs, ssms, cks, cvs = [], [], [], [], [], []
     if fam in ATTENTION_CACHE:
         for i in range(cfg.n_layers):
             p = _layer(params["layers"], i)
-            a, (k, v) = full_attention(cfg, p["attn"],
-                                       rmsnorm(p["ln1"], x, eps),
-                                       return_kv=True)
-            x = x + a
+            x = self_attention(x, p["attn"], rmsnorm(p["ln1"], x, eps))
             x = x + _ffn(cfg, p, rmsnorm(p["ln2"], x, eps))
-            ks.append(k)
-            vs.append(v)
     elif fam == "ssm":
         for i in range(cfg.n_layers):
             x = ssm_layer(x, i, convs, ssms)
@@ -170,14 +191,31 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict,
                 x = ssm_layer(x, g * per + j, convs, ssms)
             h = rmsnorm(params["site_norm"][g],
                         rmsnorm(shared["ln_attn"], x, eps), eps)
-            a, (k, v) = full_attention(cfg, shared["attn"], h, return_kv=True)
-            x = x + a
+            x = self_attention(x, shared["attn"], h)
             x = x + swiglu(shared["mlp"], rmsnorm(shared["ln_mlp"], x, eps))
-            ks.append(k)
-            vs.append(v)
+    elif fam == "vlm":
+        img = batch["image_embed"]
+        per = cfg.cross_every
+        for g in range(cfg.n_layers // per):
+            cp = _layer(params["cross"], g)
+            cross_cache(cp["attn"], img)
+            x = cross_block(cfg, cp, x, img)
+            for j in range(per):
+                p = _layer(params["layers"], g * per + j)
+                x = self_attention(x, p["attn"], rmsnorm(p["ln1"], x, eps))
+                x = x + swiglu(p["mlp"], rmsnorm(p["ln2"], x, eps))
+    elif fam == "encdec":
+        enc = encoder(cfg, params, batch["audio_embed"])
+        x = x + sinusoidal_positions(s, cfg.d_model, device=x.device)
+        for i in range(cfg.n_layers):
+            p = _layer(params["layers"], i)
+            x = self_attention(x, p["self"], rmsnorm(p["ln1"], x, eps))
+            cross_cache(p["cross"], enc)
+            x = x + full_attention(cfg, p["cross"], rmsnorm(p["ln2"], x, eps),
+                                   kv_x=enc, causal=False)
+            x = x + gelu_mlp(p["mlp"], rmsnorm(p["ln3"], x, eps))
     else:
-        raise ValueError(f"prefill: the port serves the dense, moe, ssm "
-                         f"and hybrid families, got {fam!r}")
+        raise ValueError(f"prefill: unknown family {fam!r}")
 
     cache: dict[str, Any] = {}
     if convs:
@@ -188,6 +226,8 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict,
             name: torch.nn.functional.pad(torch.stack(t),
                                           (0, 0, 0, 0, 0, max(pad, 0)))
             for name, t in (("k", ks), ("v", vs))}
+    if cks:
+        cache["cross"] = {"k": torch.stack(cks), "v": torch.stack(cvs)}
     x = rmsnorm(params["final_norm"], x[:, -1:, :], eps)
     return logits_from(params["embed"], cfg, x)[:, 0], cache
 
@@ -196,7 +236,8 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict,
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
                 token: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """One-token decode.  token [B,1] int, pos [B] int.  Writes the cache
-    in place; returns logits [B, Vpad] fp32."""
+    in place (the cross cache is only read); returns logits [B, Vpad]
+    fp32."""
     fam = cfg.family
     x = embed_tokens(params["embed"], token)
     eps = cfg.norm_eps
@@ -229,9 +270,38 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
             x = x + decode_attention(cfg, shared["attn"], h, kc[g], vc[g],
                                      pos)
             x = x + swiglu(shared["mlp"], rmsnorm(shared["ln_mlp"], x, eps))
+    elif fam == "vlm":
+        kc, vc = cache["self"]["k"], cache["self"]["v"]
+        ck, cv = cache["cross"]["k"], cache["cross"]["v"]
+        per = cfg.cross_every
+        for g in range(cfg.n_layers // per):
+            cp = _layer(params["cross"], g)
+            h = rmsnorm(cp["ln"], x, eps)
+            x = x + gated(cp["gate_attn"], decode_attention(
+                cfg, cp["attn"], h, ck[g], cv[g], pos, update_cache=False))
+            x = x + gated(cp["gate_mlp"], swiglu(
+                cp["mlp"], rmsnorm(cp["ln_mlp"], x, eps)))
+            for j in range(per):
+                i = g * per + j
+                p = _layer(params["layers"], i)
+                h = rmsnorm(p["ln1"], x, eps)
+                x = x + decode_attention(cfg, p["attn"], h, kc[i], vc[i], pos)
+                x = x + swiglu(p["mlp"], rmsnorm(p["ln2"], x, eps))
+    elif fam == "encdec":
+        kc, vc = cache["self"]["k"], cache["self"]["v"]
+        ck, cv = cache["cross"]["k"], cache["cross"]["v"]
+        x = x + sinusoidal_positions(1, cfg.d_model,
+                                     offset=pos[:, None])[:, None, :]
+        for i in range(cfg.n_layers):
+            p = _layer(params["layers"], i)
+            h = rmsnorm(p["ln1"], x, eps)
+            x = x + decode_attention(cfg, p["self"], h, kc[i], vc[i], pos)
+            h = rmsnorm(p["ln2"], x, eps)
+            x = x + decode_attention(cfg, p["cross"], h, ck[i], cv[i], pos,
+                                     update_cache=False)
+            x = x + gelu_mlp(p["mlp"], rmsnorm(p["ln3"], x, eps))
     else:
-        raise ValueError(f"decode_step: the port serves the dense, moe, ssm "
-                         f"and hybrid families, got {fam!r}")
+        raise ValueError(f"decode_step: unknown family {fam!r}")
     x = rmsnorm(params["final_norm"], x, eps)
     return logits_from(params["embed"], cfg, x)[:, 0]
 

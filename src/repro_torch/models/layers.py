@@ -1,4 +1,5 @@
-"""Layer primitives on tensors: norms, RoPE, SwiGLU, embeddings, the loss.
+"""Layer primitives on tensors: norms, RoPE, sinusoidal positions, SwiGLU
+and GELU MLPs, embeddings, the loss.
 
 Ports ``repro.models.layers`` at tensor-parallel width 1.  There the
 sequence-parallel helpers ``sp_col_projects`` and ``rs_project`` reduce to
@@ -50,6 +51,24 @@ def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
                      dim=-1).to(x.dtype)
 
 
+def sinusoidal_positions(seq: int, d: int, offset: torch.Tensor | int = 0,
+                         device: str | torch.device | None = None
+                         ) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings, bf16: ``[seq, d]`` for an
+    int ``offset``; a ``[B, 1]`` position tensor (a decode step's, with
+    ``seq`` 1) gives ``[B, d]``.  Angles in fp32, sines then cosines, as
+    the reference."""
+    if isinstance(offset, torch.Tensor):
+        device = offset.device
+    pos = torch.arange(seq, device=device)[:, None] + offset
+    dim = torch.arange(d // 2, device=device)[None, :]
+    inv = torch.exp(-torch.log(torch.tensor(10000.0, device=device)) * dim
+                    / max(d // 2 - 1, 1))
+    ang = pos.float() * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)],
+                     dim=-1).to(torch.bfloat16)
+
+
 # ---------------------------------------------------------------- MLP
 
 
@@ -65,6 +84,22 @@ def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
     g = x @ p["gate"]
     u = x @ p["up"]
     return (silu(g) * u) @ p["down"]
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh approximation (``jax.nn.gelu``'s default),
+    ``x * (0.5 * (1 + tanh(c * (x + 0.044715 * x**3))))``, each op rounded
+    to ``x.dtype`` and each constant cast to it first, as the reference's
+    chain lowers.  ``F.gelu(approximate="tanh")`` rounds once and differs
+    in 44% of the bf16 outputs by one ulp."""
+    def const(v: float) -> torch.Tensor:
+        return torch.tensor(v, dtype=x.dtype, device=x.device)
+    inner = const(0.7978845608028654) * (x + const(0.044715) * (x * x * x))
+    return x * (const(0.5) * (const(1.0) + torch.tanh(inner)))
+
+
+def gelu_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
+    return gelu(x @ p["up"]) @ p["down"]
 
 
 # ---------------------------------------------------------------- embed / head

@@ -1,10 +1,9 @@
 """Public model API: one object per architecture config.
 
-Ports ``repro.models.Model`` for the dense, moe, ssm and hybrid families:
-the training loss, the train half of the batch declaration, the
-full-sequence ``prefill`` and the methods the two serving engines call (the
-chunk and paged ones for the attention-cache families, dense and moe, as
-in the reference).  The reference's ``use_pallas``
+Ports ``repro.models.Model`` for every family: the training loss, the
+batch declaration, the full-sequence ``prefill`` and the methods the two
+serving engines call (the chunk and paged ones for the attention-cache
+families, dense and moe, as in the reference).  The reference's ``use_pallas``
 switch has no counterpart: the tensors' device picks the kernel or its
 plain version.  A ``Model`` holds no tensors; weights and caches are
 passed in, and caches are updated in place, so the decode methods return
@@ -45,30 +44,48 @@ class Model:
             loss = loss + self.cfg.router_aux_weight * metrics["moe_aux"]
         return loss, metrics
 
-    # ---- batch declaration (train) ----
+    # ---- batch declaration ----
     def input_specs(self, shape: ShapeConfig) -> dict[str, tuple]:
-        """``{name: (shape, dtype)}`` of a training batch: tokens and
-        labels for the dense, moe, ssm and hybrid families."""
-        if shape.kind != "train":
-            raise ValueError(f"the port declares training batches only, got "
-                             f"{shape.kind!r}")
-        if self.cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-            raise ValueError(f"the port declares the dense, moe, ssm and "
-                             f"hybrid batches, got {self.cfg.family!r}")
-        tok = ((shape.global_batch, shape.seq_len), torch.int32)
-        return {"tokens": tok, "labels": tok}
+        """``{name: (shape, dtype)}`` of one train or prefill batch, as the
+        reference declares it.  train: tokens and labels; vlm adds the
+        stubbed patch embeddings ``image_embed`` [B, n_image_tokens, D];
+        encdec takes the stubbed frame embeddings ``audio_embed`` [B, S, D]
+        and ``decoder_train_len`` tokens and labels.  prefill: the same
+        without labels."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+
+        def tok(n: int) -> tuple:
+            return ((b, n), torch.int32)
+
+        if shape.kind not in ("train", "prefill"):
+            raise ValueError(f"unknown batch kind {shape.kind!r}")
+        if cfg.family == "encdec":
+            batch = {"audio_embed": ((b, s, cfg.d_model), torch.bfloat16),
+                     "tokens": tok(cfg.decoder_train_len)}
+        else:
+            batch = {"tokens": tok(s)}
+        if shape.kind == "train":
+            batch["labels"] = batch["tokens"]
+        if cfg.family == "vlm":
+            batch["image_embed"] = ((b, cfg.n_image_tokens, cfg.d_model),
+                                    torch.bfloat16)
+        return batch
 
     def sample_batch(self, shape: ShapeConfig, seed: int,
                      device: str | torch.device) -> dict[str, torch.Tensor]:
-        """A random batch matching ``input_specs`` on ``device``: token ids
-        uniform over the real vocab, drawn in declaration order from
-        numpy's ``default_rng(seed)`` (the reference draws from
-        ``jax.random``)."""
+        """A random batch matching ``input_specs`` on ``device``, drawn in
+        declaration order from numpy's ``default_rng(seed)`` (the
+        reference draws from ``jax.random``): token ids uniform over the
+        real vocab, embeddings standard-normal rounded to bf16."""
         rng = np.random.default_rng(seed)
-        return {name: torch.tensor(
-                    rng.integers(0, self.cfg.vocab_size, size=dims),
-                    dtype=dtype, device=device)
-                for name, (dims, dtype) in self.input_specs(shape).items()}
+        out = {}
+        for name, (dims, dtype) in self.input_specs(shape).items():
+            arr = (rng.integers(0, self.cfg.vocab_size, size=dims)
+                   if dtype == torch.int32
+                   else rng.standard_normal(dims, dtype=np.float32))
+            out[name] = torch.tensor(arr, dtype=dtype, device=device)
+        return out
 
     # ---- serving: prefill and contiguous decode ----
     def prefill(self, params: dict, batch: dict,

@@ -1,9 +1,9 @@
-"""Parameter specification trees for the dense, moe, ssm and hybrid
-families.
+"""Parameter specification trees for every family: dense, moe, ssm,
+hybrid, vlm and encdec.
 
 Mirrors ``repro.models.params`` together with the reference's spec
-constructors for these families (``stack.param_specs``,
-``attention.attn_specs``, ``layers.swiglu_specs``/``embed_specs``,
+constructors (``stack.param_specs``, ``attention.attn_specs``,
+``layers.swiglu_specs``/``gelu_mlp_specs``/``embed_specs``,
 ``moe.moe_specs``, ``ssm.ssm_specs``): one
 declaration of every parameter's shape, dtype, logical axes and
 initializer.  Layer weights are stacked ``[L, ...]`` exactly as in the
@@ -177,6 +177,14 @@ def swiglu_specs(cfg: ModelConfig, layers: int | None) -> dict:
     }
 
 
+def gelu_mlp_specs(cfg: ModelConfig, layers: int | None) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "up": dense(d, f, "embed", "mlp", layers),
+        "down": dense(f, d, "mlp", "embed", layers),
+    }
+
+
 def embed_specs(cfg: ModelConfig) -> dict:
     v, d = cfg.padded_vocab, cfg.d_model
     specs = {"tok": ParamSpec((v, d), ("vocab", "embed"), init="embed")}
@@ -219,10 +227,38 @@ def _shared_attn_specs(cfg: ModelConfig) -> dict:
     }
 
 
+def _cross_layer_specs(cfg: ModelConfig, n: int) -> dict:
+    """A vlm group's gated cross-attention block; the gates are fp32
+    ``(n, 1)`` and start at zero, so every cross block starts as the
+    identity."""
+    return {
+        "ln": scale(cfg.d_model, n),
+        "attn": attn_specs(cfg, n),
+        "gate_attn": ParamSpec((n, 1), ("layers", None), torch.float32,
+                               "zeros"),
+        "ln_mlp": scale(cfg.d_model, n),
+        "mlp": swiglu_specs(cfg, n),
+        "gate_mlp": ParamSpec((n, 1), ("layers", None), torch.float32,
+                              "zeros"),
+    }
+
+
+def _encdec_dec_layer_specs(cfg: ModelConfig, n: int) -> dict:
+    return {
+        "ln1": scale(cfg.d_model, n),
+        "self": attn_specs(cfg, n),
+        "ln2": scale(cfg.d_model, n),
+        "cross": attn_specs(cfg, n),
+        "ln3": scale(cfg.d_model, n),
+        "mlp": gelu_mlp_specs(cfg, n),
+    }
+
+
 def param_specs(cfg: ModelConfig) -> dict:
-    """The tree of the families the port builds: embed, final norm and the
-    stacked layers; ``hybrid`` adds the shared attention block and one
-    site norm per group.  vlm and encdec are later slices."""
+    """The tree of every family: embed, final norm and the stacked layers;
+    ``hybrid`` adds the shared attention block and one site norm per group,
+    ``vlm`` one cross block per group of ``cross_every`` layers, and
+    ``encdec`` the encoder's layers and norm beside the decoder's."""
     specs: dict[str, Any] = {"embed": embed_specs(cfg),
                              "final_norm": scale(cfg.d_model)}
     if cfg.family == "dense":
@@ -236,7 +272,20 @@ def param_specs(cfg: ModelConfig) -> dict:
         specs["layers"] = _ssm_layer_specs(cfg, groups * (cfg.attn_every - 1))
         specs["shared"] = _shared_attn_specs(cfg)
         specs["site_norm"] = scale(cfg.d_model, groups)
+    elif cfg.family == "vlm":
+        specs["layers"] = _dense_layer_specs(cfg, cfg.n_layers)
+        specs["cross"] = _cross_layer_specs(cfg,
+                                            cfg.n_layers // cfg.cross_every)
+    elif cfg.family == "encdec":
+        n = cfg.n_encoder_layers
+        specs["enc_layers"] = {
+            "ln1": scale(cfg.d_model, n),
+            "attn": attn_specs(cfg, n),
+            "ln2": scale(cfg.d_model, n),
+            "mlp": gelu_mlp_specs(cfg, n),
+        }
+        specs["enc_norm"] = scale(cfg.d_model)
+        specs["layers"] = _encdec_dec_layer_specs(cfg, cfg.n_layers)
     else:
-        raise ValueError(f"the port builds the dense, moe, ssm and hybrid "
-                         f"families, got {cfg.family!r} ({cfg.name})")
+        raise ValueError(f"unknown family {cfg.family!r} ({cfg.name})")
     return specs

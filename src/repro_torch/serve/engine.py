@@ -23,7 +23,10 @@ contiguous oracle token for token (``core.verify.DualEnvHarness``).
 
 ``ServeEngine`` is the contiguous engine, one decode step per token over
 per-slot caches; it is the paged engine's oracle, and the engine of the
-ssm and hybrid families, whose conv and SSM state has no paged form.  As
+ssm and hybrid families, whose conv and SSM state has no paged form, and
+of vlm and encdec.  Their cross caches start at zero and stay so, since
+the serial prefill runs decode steps only (as in the reference): every
+cross-attention then reads zeros and adds nothing to the stream.  As
 in the reference, its serial prefill steps every slot for each prompt
 token and never resets a slot's state at admission: attention rows are
 rewritten idempotently, but each extra step advances the other lanes'

@@ -556,6 +556,9 @@ def test_sample_batch_takes_its_device_from_the_caller():
     for arch in ("mamba2-2.7b", "zamba2-2.7b", "deepseek-7b"):
         assert set(t_build(t_reduced(T_ARCHS[arch])).input_specs(shape)) == {
             "tokens", "labels"}
-    with pytest.raises(ValueError, match="dense, moe, ssm and hybrid"):
-        t_build(dataclasses.replace(t_reduced(T_ARCHS["whisper-medium"]))
-                ).input_specs(shape)
+    whisper = t_build(t_reduced(T_ARCHS["whisper-medium"]))
+    assert whisper.input_specs(shape) == {
+        "audio_embed": ((2, 16, 128), torch.bfloat16),
+        "tokens": ((2, 16), torch.int32), "labels": ((2, 16), torch.int32)}
+    with pytest.raises(ValueError, match="unknown batch kind"):
+        whisper.input_specs(dataclasses.replace(shape, kind="bogus"))
