@@ -77,7 +77,8 @@ non-zero without printing a result:
                   the kernel run's.
 12. train_cli   — ``launch/train.py::train`` on the card at ``reduced()``
                   scale: a run cut at a checkpoint and resumed reproduces
-                  the uninterrupted run's losses.
+                  the uninterrupted run's losses; the flash kernel launched
+                  twice a layer a step over the three runs.
 13. flash_timing — flash kernel, plain version and
                   ``scaled_dot_product_attention(is_causal=True)`` (a
                   yardstick the port never calls) at the training shape,
@@ -270,6 +271,31 @@ non-zero without printing a result:
                   the vlm; none for whisper, whose lengths miss the flash
                   condition); one more step under ``torch.profiler``.
 
+36. env_manifest — (run after train_cli, beside the examples) the
+                  environment layer on deepseek-7b's train step at full
+                  width cut to 2 layers (seq 128, batch 1): the manifest
+                  captured and bound (the binding's card name and power
+                  limit equal ``nvidia-smi``'s); the first step attested
+                  twice from fresh states (one program, one fingerprint;
+                  its kernel lines name the flash kernel, once a layer and
+                  once a recompute, and no plain version; no host transfer
+                  and no collective in its transport report); the same
+                  first step unrecorded gives the same loss, bit for bit;
+                  the same step attested on the CPU gives another program,
+                  which ``diff`` tags ``EXPECTED (binding differs)`` with
+                  no portable difference.
+37. train_cli_env — ``python -m repro_torch.launch.train`` with the
+                  train_cli phase's arguments in a process of its own: exit
+                  code 0, ``manifest.json`` with the in-process run's image
+                  hash, binding and program fingerprint, the audit's gate
+                  passed, the in-process losses within 1e-5 relative.
+38. examples    — the five examples of ``examples/torch/`` (quickstart,
+                  ring_simulation, serve_lm, train_lm, verify_env) on the
+                  card, each in a process of its own, all started together
+                  before train_cli_env: each exits 0 with ``OK`` last, and
+                  the launches it prints show its kernels (flash; the
+                  cable epoch; paged; flash; flash).
+
 Every engine the serve, gather_serve, cluster, vlm_serve and encdec_serve
 phases build must leave ``torch.cuda.memory_allocated()`` where it found
 it once deleted, with no help from the collector; each served model is
@@ -279,7 +305,9 @@ Then the ``kernels`` summary line (the paged row with its design, launch
 floor and ``paged_timing`` shapes; the paged and flash rows also carry the
 moe runs' launches, the paged row the cluster runs' launches by policy and
 the every-row timing, the flash row the vlm and encdec phases' launches
-by mode), the card's name
+by mode; the flash row also the train_cli, env_manifest and examples'
+launches, the paged row serve_lm's and the HH row ring_simulation's
+epoch launches), the card's name
 and power limit as ``nvidia-smi`` reports them, and last ``{"ok": true,
 "device": ...}``.
 """
@@ -316,6 +344,10 @@ from repro_torch.kernels.hh_neuron import (  # noqa: E402
     EPOCH_COMPARTMENTS, cable_epoch_cuda, cable_epoch_plain, hh_step_cuda,
     hh_step_plain)
 from repro_torch.launch.train import train as train_cli  # noqa: E402
+from repro_torch.configs import TINY_MESH  # noqa: E402
+from repro_torch.core import attest  # noqa: E402
+from repro_torch.core.manifest import (Manifest, PortableEnv,  # noqa: E402
+                                       diff as manifest_diff)
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention_cuda, paged_attention_plain, paged_design, paged_splits)
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
@@ -1333,25 +1365,233 @@ def phase_train(dev) -> tuple[dict, float]:
     return launches, steady_ms
 
 
-def phase_train_cli() -> None:
+TRAIN_CLI_ARGS = dict(steps=4, total_steps=4, ckpt_every=2, seq_len=128,
+                      global_batch=4)
+
+
+def phase_train_cli() -> tuple[dict, dict, dict]:
     """The launcher on the card at reduced scale: cut at the step-2
-    checkpoint and resumed, it gives the uninterrupted run's losses."""
-    kw = dict(steps=4, total_steps=4, ckpt_every=2, seq_len=128,
-              global_batch=4, device="cuda")
+    checkpoint and resumed, it gives the uninterrupted run's losses; the
+    uninterrupted run's result and manifest, and the three runs' launches,
+    are returned for ``train_cli_env``."""
+    kw = dict(TRAIN_CLI_ARGS, device="cuda")
+    ops.reset_launches()
     with tempfile.TemporaryDirectory() as tmp:
         full = train_cli(ARCH, out_dir=f"{tmp}/full", **kw)
         first = train_cli(ARCH, out_dir=f"{tmp}/cut", **dict(kw, steps=2))
         resumed = train_cli(ARCH, out_dir=f"{tmp}/cut", resume=True, **kw)
+        manifest = json.loads(Path(f"{tmp}/full/manifest.json").read_text())
+    launches = dict(ops.LAUNCHES)
     cut = first["losses"] + resumed["losses"]
     diff = max(abs(a - b) / abs(b) for a, b in zip(cut, full["losses"]))
     check(len(cut) == 4 and diff <= 1e-5,
           f"resumed losses {cut} != uninterrupted {full['losses']}")
     check(full["loss_decreased"], f"launcher losses {full['losses']}")
     check(resumed["audit"]["trace"].get("ckpt-restore") == 1, "no restore")
+    layers = reduced(ALL_ARCHS[ARCH]).n_layers
+    check(launches["flash_attention"] == 2 * layers * (4 + 2 + 2),
+          f"the launcher's runs launched flash {launches} times, expected "
+          f"2 x layers x 8 steps")
     emit({"phase": "train_cli", "arch": full["arch"], "losses": full["losses"],
           "resumed_losses": cut, "max_rel_diff": diff,
           "bit_exact": cut == full["losses"],
-          "trace": full["audit"]["trace"]})
+          "trace": full["audit"]["trace"], "launches": launches})
+    return full, manifest, launches
+
+
+ENV_LAYERS, ENV_SEQ = 2, 128    # full width; a length the flash kernel takes
+
+
+def attested_first_step(step_fn, state, host_batch, dev):
+    """The first step of a run, recorded: (program, its transport report,
+    the loss)."""
+    batch = {k: torch.as_tensor(a, device=dev) for k, a in host_batch.items()}
+    with attest.record() as program:
+        state, metrics = step_fn(state, batch)
+    return (program, attest.parse_program(program.text, TINY_MESH.n_devices),
+            float(metrics["loss"]))
+
+
+def phase_env_manifest(dev) -> dict:
+    """The environment layer on the card: deepseek-7b's train step at full
+    width (cut to 2 layers, seq 128, batch 1) captured, bound and attested.
+    The binding names the card and its power limit as ``nvidia-smi`` does;
+    two attestations of the first step (fresh states from one seed) give
+    one fingerprint, name the flash kernel and no plain version, and show
+    no host transfer; the same step without the recording gives the same
+    loss, bit for bit; the same step attested on the CPU gives another
+    program, which ``diff`` tags as expected (the binding differs)."""
+    cfg = dataclasses.replace(ALL_ARCHS[ARCH], n_layers=ENV_LAYERS)
+    tc = TrainConfig(remat="full")
+    shape = ShapeConfig("train", "train", ENV_SEQ, 1)
+    man = Manifest(PortableEnv.capture(cfg, shape, tc, "baseline"))
+    man.bind(dev, TINY_MESH)
+    smi = nvidia_smi()
+    check(f"{man.binding.device_kind}, {man.binding.power_limit}" == smi,
+          f"binding {man.binding} against nvidia-smi {smi!r}")
+    _, step_fn, batches, fresh = train_setup(cfg, ENV_SEQ, 1, 1, dev)
+    ops.reset_launches()
+    runs = [attested_first_step(step_fn, fresh(), batches[0], dev)
+            for _ in range(2)]
+    launches = dict(ops.LAUNCHES)
+    _, bare_losses, _ = run_steps(step_fn, fresh(), batches[:1], dev)
+    (program, report, loss), (again, _, loss_again) = runs
+    man.attest(program_text=program.text, collectives=report.summary())
+    fingerprint = man.attestation["program_fingerprint"]
+    check(again.text == program.text, "two attestations of the first step "
+                                      "recorded different programs")
+    kernel_calls = [line for line in program.lines
+                    if line.startswith(("kernel::", "plain::"))]
+    check(len(kernel_calls) == 2 * ENV_LAYERS and all(
+        line.startswith("kernel::flash_attention(") for line in kernel_calls)
+        and "plain::" not in program.text,
+        f"the card's program calls {kernel_calls}")
+    check(launches["flash_attention"] == 2 * len(kernel_calls),
+          f"flash launched {launches} times over two attested steps")
+    check(report.ops == [] and report.findings == [],
+          f"the card's step: {report.summary()}")
+    check(loss == loss_again == bare_losses[0],
+          f"attested losses {loss}, {loss_again} against {bare_losses[0]} "
+          f"without the recording")
+    del fresh, step_fn
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    _, cpu_step, cpu_batches, cpu_fresh = train_setup(cfg, ENV_SEQ, 1, 1,
+                                                      "cpu")
+    cpu_program, cpu_report, cpu_loss = attested_first_step(
+        cpu_step, cpu_fresh(), cpu_batches[0], "cpu")
+    cpu_s = time.perf_counter() - t0
+    del cpu_step, cpu_fresh
+    cpu_man = Manifest(man.portable).bind("cpu", TINY_MESH)
+    cpu_man.attest(program_text=cpu_program.text,
+                   collectives=cpu_report.summary())
+    lines = manifest_diff(man, cpu_man)
+    check(bool(lines) and lines[-1].endswith("[EXPECTED (binding differs)]")
+          and not any(line.startswith("portable.") for line in lines),
+          f"diff card vs CPU: {lines}")
+    check("plain::flash_attention_plain(" in cpu_program.text
+          and "kernel::" not in cpu_program.text,
+          "the CPU's program does not name the plain version alone")
+    emit({"phase": "env_manifest", "arch": cfg.name, "layers": ENV_LAYERS,
+          "d_model": cfg.d_model, "seq": ENV_SEQ, "batch": 1,
+          "image_hash": man.portable.image_hash,
+          "binding": dataclasses.asdict(man.binding),
+          "nvidia_smi": smi, "cuda_version": man.portable.cuda_version,
+          "program_fingerprint": fingerprint,
+          "program_ops": len(program.lines),
+          "program_bytes": man.attestation["program_bytes"],
+          "kernel_calls": len(kernel_calls), "launches": launches,
+          "losses": [loss, loss_again], "loss_without_recording":
+          bare_losses[0], "cpu_loss": cpu_loss,
+          "cpu_fingerprint": cpu_man.attestation["program_fingerprint"],
+          "cpu_program_ops": len(cpu_program.lines), "cpu_s": cpu_s,
+          "diff_card_vs_cpu": lines,
+          "transport": report.summary()})
+    return launches
+
+
+def phase_train_cli_env(full: dict, manifest: dict) -> None:
+    """``python -m repro_torch.launch.train`` on the card in a process of its
+    own, with the train_cli phase's arguments: exit code 0, ``manifest.json``
+    written with the in-process run's image hash, binding and program
+    fingerprint, the audit's gate passed and the same losses."""
+    root = Path(__file__).resolve().parent
+    args = {"--steps": TRAIN_CLI_ARGS["steps"],
+            "--ckpt-every": TRAIN_CLI_ARGS["ckpt_every"],
+            "--seq-len": TRAIN_CLI_ARGS["seq_len"],
+            "--global-batch": TRAIN_CLI_ARGS["global_batch"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        r = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch", ARCH,
+             "--out", tmp, *[str(x) for kv in args.items() for x in kv]],
+            capture_output=True, text=True, timeout=600, cwd=root,
+            env={**os.environ, "PYTHONPATH": str(root / "src")})
+        check(r.returncode == 0, f"train CLI exited {r.returncode}: "
+                                 f"{r.stderr[-2000:]}")
+        out = json.loads(r.stdout)
+        written = json.loads((Path(tmp) / "manifest.json").read_text())
+    check(out["audit"]["gate_ok"] and out["diagnostics"] == "ok",
+          f"train CLI audit: {out['audit']}")
+    check(out["image_hash"] == written["image_hash"] == full["image_hash"],
+          f"image hashes: CLI {out['image_hash']}, its manifest "
+          f"{written['image_hash']}, in-process {full['image_hash']}")
+    check(written["binding"]["device_kind"] == torch.cuda.get_device_name(0)
+          and written["binding"]["power_limit"]
+          == manifest["binding"]["power_limit"],
+          f"the CLI's binding {written['binding']}")
+    check(written["attestation"]["program_fingerprint"]
+          == manifest["attestation"]["program_fingerprint"],
+          "the CLI's step program differs from the in-process run's")
+    loss_diff = max(abs(a - b) / abs(b)
+                    for a, b in zip(out["losses"], full["losses"]))
+    check(len(out["losses"]) == len(full["losses"]) and loss_diff <= 1e-5,
+          f"CLI losses {out['losses']} vs in-process {full['losses']}")
+    emit({"phase": "train_cli_env", "arch": out["arch"],
+          "image_hash": out["image_hash"], "binding": written["binding"],
+          "attestation": {k: written["attestation"][k] for k in (
+              "program_fingerprint", "program_bytes")},
+          "wireup": out["wireup"], "audit": out["audit"],
+          "losses": out["losses"], "max_rel_diff_vs_in_process": loss_diff,
+          "bit_exact": out["losses"] == full["losses"]})
+
+
+# each example, the kernels its LAUNCHES line must show, and its arguments
+EXAMPLES = {"quickstart": (("flash_attention",), []),
+            "ring_simulation": (("cable_epoch",), []),
+            "serve_lm": (("paged_attention",), []),
+            "train_lm": (("flash_attention",), ["--out", "run"]),
+            "verify_env": (("flash_attention",), [])}
+
+
+@contextlib.contextmanager
+def running_examples():
+    """Start the five examples of ``examples/torch/`` on the card, each in a
+    process of its own, all at once (each is small), their output going to
+    files; yields ``{name: (start time, process, output file)}`` and stops
+    every process still running on the way out."""
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {}
+        try:
+            for name, (_, args) in EXAMPLES.items():
+                cwd = Path(tmp) / name
+                cwd.mkdir()
+                log = cwd / "out.log"
+                with open(log, "w") as sink:
+                    procs[name] = (time.perf_counter(), subprocess.Popen(
+                        [sys.executable, str(root / "examples" / "torch"
+                                             / f"{name}.py"), *args],
+                        cwd=cwd, env=env, stdout=sink,
+                        stderr=subprocess.STDOUT), log)
+            yield procs
+        finally:
+            for _, proc, _ in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+
+
+def phase_examples(procs: dict) -> dict:
+    """Each example exits 0 with ``OK`` on its last line, and the launches
+    it prints show its kernels."""
+    out = {}
+    for name, (t0, proc, log) in procs.items():
+        rc = proc.wait(timeout=600)
+        wall = time.perf_counter() - t0
+        lines = log.read_text().strip().splitlines()
+        check(rc == 0, f"example {name} exited {rc}: {lines[-20:]}")
+        check(lines[-1].startswith("OK"), f"{name}: {lines[-3:]}")
+        at = next(i for i, line in enumerate(lines)
+                  if line.startswith("LAUNCHES "))
+        launches = json.loads(lines[at][len("LAUNCHES "):])
+        check(all(launches[k] > 0 for k in EXAMPLES[name][0]),
+              f"{name} launched {launches}")
+        out[name] = {"wall_s": wall, "launches": launches,
+                     "said": lines[at - 1]}
+    emit({"phase": "examples", **out})
+    return out
 
 
 def ptxas_report(name: str) -> dict[str, dict[str, int]]:
@@ -3359,7 +3599,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_train_launches = phase_moe_train(dev)
     torch.cuda.empty_cache()
-    phase_train_cli()
+    cli_full, cli_manifest, cli_launches = phase_train_cli()
+    with running_examples() as procs:
+        phase_train_cli_env(cli_full, cli_manifest)
+        env_launches = phase_env_manifest(dev)
+        examples = phase_examples(procs)
+    torch.cuda.empty_cache()
     family = {}
     for arch in (VLM_ARCH, ENCDEC_ARCH):
         family[arch] = {"reference": phase_family_reference(arch, dev)}
@@ -3394,6 +3639,8 @@ def main() -> int:
     # ring's path (hh_step's launches are the epoch hold's cable.step path)
     extra = {"paged_attention": {
         "cluster_launches": cluster_launches,
+        "example_launches": {
+            "serve_lm": examples["serve_lm"]["launches"]["paged_attention"]},
         "moe_launches": moe_serve_launches["paged_attention"],
         "moe_all_rows": {key: moe_timing[key] for key in (
             "shape", "design", "splits", "max_abs_err", "all_rows",
@@ -3406,11 +3653,18 @@ def main() -> int:
             "library_ms", "bound_ms", "bound_by")}
             for sh in paged_timing["shapes"]]},
         "flash_attention": {
+        "train_cli_launches": cli_launches["flash_attention"],
+        "env_manifest_launches": env_launches["flash_attention"],
+        "example_launches": {name: ex["launches"]["flash_attention"]
+                             for name, ex in examples.items()
+                             if "flash_attention" in EXAMPLES[name][0]},
         "moe_launches": moe_train_launches["flash_attention"],
         "vlm_launches": family[VLM_ARCH],
         "encdec_launches": family[ENCDEC_ARCH]},
         "hh_step": {
         "epoch_kernel": "cable_epoch", "epoch_launches": epoch_launches,
+        "epoch_example_launches": {"ring_simulation": examples[
+            "ring_simulation"]["launches"]["cable_epoch"]},
         "epoch_ms": epoch["ms"], "epoch_plain_ms": epoch["plain_ms"],
         "epoch_bound_ms": epoch["bound_ms"],
         "epoch_bound_by": epoch["bound_by"], "epoch_max_abs_err": epoch_err}}

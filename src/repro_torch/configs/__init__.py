@@ -1,6 +1,12 @@
-from repro_torch.configs.archs import ALL_ARCHS, resolve_arch
-from repro_torch.configs.base import (ModelConfig, RunConfig, ShapeConfig,
-                                      TrainConfig, reduced)
+from repro_torch.configs.archs import (ALL_ARCHS, SUBQUADRATIC,
+                                       applicable_shapes)
+from repro_torch.configs.base import (MULTI_POD, SHAPES, SINGLE_POD,
+                                      TINY_MESH, MeshConfig, ModelConfig,
+                                      RunConfig, ShapeConfig, TrainConfig,
+                                      reduced)
 
-__all__ = ["ALL_ARCHS", "ModelConfig", "RunConfig", "ShapeConfig",
-           "TrainConfig", "reduced", "resolve_arch"]
+__all__ = [
+    "SHAPES", "SINGLE_POD", "MULTI_POD", "TINY_MESH",
+    "MeshConfig", "ModelConfig", "RunConfig", "ShapeConfig", "TrainConfig",
+    "reduced", "ALL_ARCHS", "SUBQUADRATIC", "applicable_shapes",
+]

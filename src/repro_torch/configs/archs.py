@@ -90,13 +90,13 @@ ALL_ARCHS: dict[str, ModelConfig] = {
 }
 
 
-def resolve_arch(name: str) -> ModelConfig:
-    """``--arch <id>`` resolution (mirrors ``repro.core.registry``)."""
-    if name in ALL_ARCHS:
-        return ALL_ARCHS[name]
-    # tolerate module-style ids (dots/dashes vs underscores)
-    norm = name.replace("_", "-")
-    for k in ALL_ARCHS:
-        if k.replace(".", "-") == norm or k == norm:
-            return ALL_ARCHS[k]
-    raise KeyError(f"unknown arch {name!r}; known: {sorted(ALL_ARCHS)}")
+# Shape applicability (DESIGN.md §6): long_500k only for sub-quadratic
+# sequence mixing; every arch here has a decoder so decode shapes run for all.
+SUBQUADRATIC = {"mamba2-2.7b", "zamba2-2.7b"}
+
+
+def applicable_shapes(name: str) -> list[str]:
+    shapes = ["train_4k", "prefill_32k", "decode_32k"]
+    if name in SUBQUADRATIC:
+        shapes.append("long_500k")
+    return shapes

@@ -3,8 +3,9 @@
 Pure data, copied rather than imported so that the port never loads the
 JAX package.  Field names, defaults and ``reduced()`` match the reference
 exactly; ``tests/test_torch_layers.py`` holds the two copies equal.
-``ShapeConfig`` and ``TrainConfig`` are copied whole; ``RunConfig`` keeps the
-fields a single-GPU run reads (the mesh and sharding rules wait for the
+``ShapeConfig``, ``SHAPES``, ``MeshConfig`` with its meshes and
+``TrainConfig`` are copied whole; ``RunConfig`` keeps the fields a
+single-GPU run reads (the mesh and sharding rules wait for the
 multi-GPU slice; ``use_pallas`` has no counterpart, since the port picks a
 kernel by the tensors' device).
 """
@@ -123,6 +124,49 @@ class ShapeConfig:
     @property
     def is_train(self) -> bool:
         return self.kind == "train"
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
+}
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Logical device mesh.  ``data`` carries batch + FSDP, ``model`` carries
+    tensor/expert parallelism, ``pod`` (optional) is the cross-pod DP axis."""
+
+    shape: tuple[int, ...] = (16, 16)
+    axes: tuple[str, ...] = ("data", "model")
+
+    @property
+    def n_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+    @property
+    def batch_axes(self) -> tuple[str, ...]:
+        return tuple(a for a in self.axes if a in ("pod", "data"))
+
+    @property
+    def model_axes(self) -> tuple[str, ...]:
+        return tuple(a for a in self.axes if a == "model")
+
+    def axis_size(self, name: str) -> int:
+        if name not in self.axes:
+            return 1
+        return self.shape[self.axes.index(name)]
+
+
+SINGLE_POD = MeshConfig((16, 16), ("data", "model"))
+MULTI_POD = MeshConfig((2, 16, 16), ("pod", "data", "model"))
+# Reduced meshes for CPU-measured benchmarks / tests.
+TINY_MESH = MeshConfig((1, 1), ("data", "model"))
 
 
 @dataclass(frozen=True)

@@ -6,12 +6,15 @@ either side and no fallback on failure: where a tensor lives decides.
 
 ``LAUNCHES`` counts the kernel launches made through these entry points,
 one per launch, so a run can show that its path really went through the
-kernels (``reset_launches`` before the run, read after).
+kernels (``reset_launches`` before the run, read after).  Each entry point
+also writes one line into a step's recorded program (``core.attest``): the
+kernel where it launches it, the plain version where a CPU tensor takes it.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.attest import note
 from repro_torch.kernels.flash_attention import (FlashAttention,
                                                  flash_attention_plain)
 from repro_torch.kernels.hh_neuron import (cable_epoch_cuda,
@@ -30,6 +33,11 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+def _launched(name: str, *tensors: torch.Tensor) -> None:
+    LAUNCHES[name] += 1
+    note("kernel", name, *tensors)
+
+
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                     v_pool: torch.Tensor, page_table: torch.Tensor,
                     pos: torch.Tensor, n_new: torch.Tensor, *,
@@ -40,12 +48,15 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     computes it (the moe family's); without it the kernel computes only
     the live rows and writes the others as zeros."""
     if q.device.type == "cpu":
+        note("plain", "paged_attention_plain", q, k_pool, v_pool,
+             page_table, pos, n_new)
         return paged_attention_plain(q, k_pool, v_pool, page_table, pos,
                                      n_new)
     if q.device.type == "cuda":
         out = paged_attention_cuda(q, k_pool, v_pool, page_table, pos, n_new,
                                    all_rows=all_rows)
-        LAUNCHES["paged_attention"] += 1
+        _launched("paged_attention", q, k_pool, v_pool, page_table, pos,
+                  n_new)
         return out
     raise ValueError(f"paged_attention has no kernel for device {q.device}")
 
@@ -56,10 +67,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``kernels.flash_attention`` for the shapes.  On a card the kernel runs
     inside ``FlashAttention``, whose backward is written in torch ops."""
     if q.device.type == "cpu":
+        note("plain", "flash_attention_plain", q, k, v)
         return flash_attention_plain(q, k, v, causal=causal)
     if q.device.type == "cuda":
         out = FlashAttention.apply(q, k, v, causal)
-        LAUNCHES["flash_attention"] += 1
+        _launched("flash_attention", q, k, v)
         return out
     raise ValueError(f"flash_attention has no kernel for device {q.device}")
 
@@ -78,10 +90,11 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         raise ValueError(f"ssd_scan: sequence {s} is not a multiple of the "
                          f"chunk {chunk}")
     if x.device.type == "cpu":
+        note("plain", "ssd_scan_plain", x, dt, a, b_in, c_in)
         return ssd_scan_plain(x, dt, a, b_in, c_in, chunk)
     if x.device.type == "cuda":
         out = SsdScan.apply(x, dt, a, b_in, c_in, chunk)
-        LAUNCHES["ssd_scan"] += 1
+        _launched("ssd_scan", x, dt, a, b_in, c_in)
         return out
     raise ValueError(f"ssd_scan has no kernel for device {x.device}")
 
@@ -92,10 +105,11 @@ def hh_step(v0: torch.Tensor, m: torch.Tensor, h: torch.Tensor,
     """The fused HH soma update -> ``(v, m, h, n)``, all ``[N]`` fp32; the
     signature of ``neuro.cable.hh_soma_update``, as in the reference."""
     if v0.device.type == "cpu":
+        note("plain", "hh_step_plain", v0, m, h, n, g_syn, i_axial, i_ext)
         return hh_step_plain(v0, m, h, n, g_syn, i_axial, i_ext, dt=dt)
     if v0.device.type == "cuda":
         out = hh_step_cuda(v0, m, h, n, g_syn, i_axial, i_ext, dt=dt)
-        LAUNCHES["hh_step"] += 1
+        _launched("hh_step", v0, m, h, n, g_syn, i_axial, i_ext)
         return out
     raise ValueError(f"hh_step has no kernel for device {v0.device}")
 
@@ -108,10 +122,11 @@ def cable_epoch(state, cfg, incoming: torch.Tensor, i_stim: torch.Tensor,
     N]`` fp32; step ``s`` takes ``i_stim`` ``[N]`` while ``s < stim_left``.
     See ``kernels.hh_neuron``."""
     if state.v.device.type == "cpu":
+        note("plain", "cable_epoch_plain", state.v, incoming, i_stim)
         return cable_epoch_plain(state, cfg, incoming, i_stim, stim_left)
     if state.v.device.type == "cuda":
         out = cable_epoch_cuda(state, cfg, incoming, i_stim, stim_left)
-        LAUNCHES["cable_epoch"] += 1
+        _launched("cable_epoch", state.v, incoming, i_stim)
         return out
     raise ValueError(f"cable_epoch has no kernel for device "
                      f"{state.v.device}")

@@ -44,7 +44,8 @@ from repro_torch.audit import (AuditContext, Evidence, EventLog,
                                MetricsServer, RunAudit, ServeMetrics, Tracer,
                                attribution, build_timelines,
                                chrome_trace_bytes)
-from repro_torch.configs import reduced, resolve_arch
+from repro_torch.configs import reduced
+from repro_torch.core.registry import resolve_arch
 from repro_torch.models import build
 from repro_torch.serve import (ClusterEngine, PagedServeEngine, Request,
                                SamplingParams, ServeEngine, resolve_device)

@@ -1,10 +1,14 @@
 """Single-GPU training launcher.
 
-Port of ``repro.launch.train`` on one device: data pipeline → train step
-→ checkpoint/restart loop with straggler tracking, traced as
-``train-step``, ``ckpt-save`` and ``ckpt-restore`` events.  Runs on the GPU
-unless ``--device cpu`` is given, and raises where CUDA is asked for and
-absent:
+Port of ``repro.launch.train`` on one device, in the reference's order:
+wire-up (the PMIx analogue, ``core.bootstrap``) → manifest capture and
+host binding (``core.manifest``) → data pipeline → train step, the first
+step attested (``core.attest``: its dispatched program fingerprinted, its
+transport report judged by ``RunAudit``) → checkpoint/restart loop with
+straggler tracking, traced as ``train-step``, ``ckpt-save`` and
+``ckpt-restore`` events.  ``manifest.json`` and ``result.json`` land in
+``--out``.  Runs on the GPU unless ``--device cpu`` is given, and raises
+where CUDA is asked for and absent:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-7b \\
         --steps 4 [--device cpu] [--resume --out DIR]
@@ -19,15 +23,13 @@ reference's does (its launcher fails on the missing embeddings).  They
 train through ``Model.loss`` and ``train.step.make_train_step`` on batches
 from ``Model.sample_batch``.
 
-Not ported: the device mesh and its wire-up, the environment manifest, the
-HLO attestation of the compiled step and ``RunAudit.finish``.  They belong
-to the multi-GPU and transport slice; their result keys (``diagnostics``,
-``image_hash``, ``wireup`` and the audit's ``findings`` and ``gate_ok``)
-are present and ``None``.
+One device, so the mesh is ``TINY_MESH`` and ``--production-mesh`` is
+refused: the production mesh belongs to the multi-GPU slice.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import tempfile
 import time
@@ -35,10 +37,15 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.audit.trace import Tracer
-from repro_torch.configs import resolve_arch
+from repro_torch.audit import AuditContext, RunAudit
+from repro_torch.configs import TINY_MESH
 from repro_torch.configs.base import (RunConfig, ShapeConfig, TrainConfig,
                                       reduced)
+from repro_torch.core import attest
+from repro_torch.core.bootstrap import WireUp, init_distributed
+from repro_torch.core.diagnostics import Diagnostics
+from repro_torch.core.manifest import Manifest, PortableEnv
+from repro_torch.core.registry import resolve_arch
 from repro_torch.data.pipeline import DataConfig, DataPipeline
 from repro_torch.models import build
 from repro_torch.runtime.checkpoint import CheckpointManager
@@ -49,6 +56,9 @@ from repro_torch.train.step import init_train_state, make_train_step
 DEFAULT_OUT = str(Path(tempfile.gettempdir()) / "repro_torch_train")
 # the families whose batches need more than the pipeline's tokens and labels
 MISSING_EMBEDS = {"vlm": "image_embed", "encdec": "audio_embed"}
+# the reference's RunConfig.rules: the paper-faithful sharding rule set,
+# which one device applies to nothing
+RULES = "baseline"
 
 
 def train(arch: str, *, smoke: bool = True, steps: int = 20,
@@ -70,6 +80,7 @@ def train(arch: str, *, smoke: bool = True, steps: int = 20,
             f"pipeline does not yield (tokens and labels only); train it "
             f"through Model.loss on Model.sample_batch batches")
     dev = resolve_device(device)
+    wireup = init_distributed(WireUp.from_env(), dev)
     shape = ShapeConfig("train", "train", seq_len, global_batch)
     horizon = total_steps or steps  # LR schedule horizon: fixed across
     # restarts so a resumed run follows the identical schedule
@@ -77,11 +88,16 @@ def train(arch: str, *, smoke: bool = True, steps: int = 20,
                      remat="full", seed=seed)
     run = RunConfig(model=cfg, shape=shape, train=tc)
     model = build(cfg)
+    manifest = Manifest(PortableEnv.capture(cfg, shape, tc, RULES)).bind(
+        dev, TINY_MESH)
 
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     ckpt = CheckpointManager(out / "ckpt")
-    tracer = Tracer()
+    diag = Diagnostics()
+    audit = RunAudit(AuditContext(workload="train", family=cfg.family,
+                                  arch=cfg.name, mesh=TINY_MESH.shape))
+    tracer = audit.tracer
     step_fn = make_train_step(model, run)
 
     start_step = 0
@@ -93,9 +109,12 @@ def train(arch: str, *, smoke: bool = True, steps: int = 20,
         tracer.emit("ckpt-restore", step=start_step)
         print(f"[train] resumed from step {start_step}")
 
-    data = DataPipeline(DataConfig(cfg.vocab_size, seq_len, global_batch,
-                                   seed=seed), start_step=start_step)
-    tracker = StragglerTracker(n_hosts=1)
+    data = DataPipeline(
+        DataConfig(cfg.vocab_size, seq_len, global_batch, seed=seed,
+                   n_hosts=wireup.num_processes, host_id=wireup.process_id),
+        start_step=start_step)
+    tracker = StragglerTracker(n_hosts=wireup.num_processes)
+    report = None
     losses = []
     t_start = time.time()
     try:
@@ -103,18 +122,37 @@ def train(arch: str, *, smoke: bool = True, steps: int = 20,
             step_id, host_batch = next(data)
             batch = {k: torch.tensor(a, device=dev)
                      for k, a in host_batch.items()}
+            first = report is None
             t0 = time.perf_counter()
             with tracer.span("train-step", step=step_id) as ev:
-                state, metrics = step_fn(state, batch)
+                # the first step is attested: the program it dispatches
+                with (attest.record() if first
+                      else contextlib.nullcontext()) as program:
+                    state, metrics = step_fn(state, batch)
                 loss = float(metrics["loss"])
                 ev["loss"] = loss
-            tracker.observe({0: time.perf_counter() - t0})
+            dt = time.perf_counter() - t0
+            tracker.observe({wireup.process_id: dt})
+            if first:
+                report = attest.parse_program(program.text,
+                                              TINY_MESH.n_devices)
+                manifest.attest(program_text=program.text,
+                                collectives=report.summary())
+                diag.extend(report.findings, "train-step-program")
+                (out / "manifest.json").write_text(manifest.to_json())
             losses.append(loss)
             if (step_id + 1) % ckpt_every == 0 or step_id + 1 == steps:
                 with tracer.span("ckpt-save", step=step_id + 1):
-                    ckpt.save(step_id + 1, state, extra={"loss": loss})
+                    ckpt.save(step_id + 1, state,
+                              extra={"loss": loss,
+                                     "image_hash":
+                                     manifest.portable.image_hash})
     finally:
         data.close()
+    # pathway expectations over the attested transport report: the same
+    # program the manifest records is judged against what this (family,
+    # mesh, workload) should emit
+    audit.finish(diag, transport=report, source="train-audit")
 
     result = {
         "arch": cfg.name,
@@ -124,11 +162,11 @@ def train(arch: str, *, smoke: bool = True, steps: int = 20,
         "loss_decreased": bool(losses and losses[-1] < losses[0]),
         "wall_s": round(time.time() - t_start, 2),
         "fleet_efficiency": tracker.fleet_efficiency(),
-        "diagnostics": None,
-        "audit": {"trace": tracer.summary()["counts"], "findings": None,
-                  "gate_ok": None},
-        "image_hash": None,
-        "wireup": None,
+        "diagnostics": diag.worst,
+        "audit": {"trace": tracer.summary()["counts"],
+                  "findings": diag.findings, "gate_ok": diag.gate()},
+        "image_hash": manifest.portable.image_hash,
+        "wireup": vars(wireup),
         "device": str(dev),
         "losses": losses,
     }

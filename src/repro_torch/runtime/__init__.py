@@ -1,1 +1,2 @@
-"""Checkpoints and straggler tracking for the training loop."""
+"""Checkpoints, straggler tracking and failure detection (``health``) for
+the training loop."""

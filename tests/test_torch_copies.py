@@ -22,6 +22,7 @@ COPIES = [
     "core/diagnostics.py", "core/inspector.py",
     "audit/timeline.py", "audit/ledger.py", "audit/expectations.py",
     "audit/report.py", "audit/metrics.py",
+    "runtime/health.py",
 ]
 NOT_VERBATIM: dict[str, str] = {}
 SHIFT = len("repro_torch") - len("repro")
