@@ -296,6 +296,30 @@ non-zero without printing a result:
                   the launches it prints show its kernels (flash; the
                   cable epoch; paged; flash; flash).
 
+39. ring_ranks  — (run after neuro) the arbor_ring of neuro (131,072
+                  cells, 32 compartments, 200 ms, 40 epochs) sharded over
+                  a 1-D ``cells`` mesh by ``neuro.sim.simulate``, one
+                  process a rank on the card, wired up through ``WireUp``
+                  from ``SLURM_NTASKS``/``SLURM_PROCID``/``REPRO_COORD_PORT``
+                  on a free port: 1 rank over NCCL, 2 and 4 ranks sharing
+                  the card over gloo (NCCL takes one rank a device).  Each
+                  world's spike counts and wavefront equal the
+                  single-process kernel run's, its final state bit for bit;
+                  every rank launches ``cable_epoch`` twice an epoch (warm
+                  and timed runs) and no other kernel.  One epoch is
+                  attested on every rank: one all-gather of 200 x 131,072
+                  int8 bytes and no other collective; no ``host-transfer``
+                  finding under NCCL, one for the all-gather under gloo
+                  (which stages device tensors through host memory).  The
+                  backend, ``wall_s`` and cell-steps a second of each
+                  world, and the NCCL version.  Every rank process has a
+                  timeout and a collective timeout: a hang fails the phase.
+40. init_benchmark — ``core.bootstrap.init_benchmark((1, 1), ("data",
+                  "model"))``, the ``osu_init`` analogue, at world size 1
+                  over NCCL: the first thing the one-rank process of
+                  ring_ranks does, so its first collective sets up NCCL's
+                  communicator.  The reference's keys.
+
 Every engine the serve, gather_serve, cluster, vlm_serve and encdec_serve
 phases build must leave ``torch.cuda.memory_allocated()`` where it found
 it once deleted, with no help from the collector; each served model is
@@ -307,7 +331,8 @@ moe runs' launches, the paged row the cluster runs' launches by policy and
 the every-row timing, the flash row the vlm and encdec phases' launches
 by mode; the flash row also the train_cli, env_manifest and examples'
 launches, the paged row serve_lm's and the HH row ring_simulation's
-epoch launches), the card's name
+epoch launches and ring_ranks' launches by world size and rank), the
+card's name
 and power limit as ``nvidia-smi`` reports them, and last ``{"ok": true,
 "device": ...}``.
 """
@@ -316,9 +341,11 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import datetime
 import json
 import os
 import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -346,6 +373,8 @@ from repro_torch.kernels.hh_neuron import (  # noqa: E402
 from repro_torch.launch.train import train as train_cli  # noqa: E402
 from repro_torch.configs import TINY_MESH  # noqa: E402
 from repro_torch.core import attest  # noqa: E402
+from repro_torch.core.bootstrap import (WireUp, init_benchmark,  # noqa: E402
+                                        init_distributed)
 from repro_torch.core.manifest import (Manifest, PortableEnv,  # noqa: E402
                                        diff as manifest_diff)
 from repro_torch.kernels.paged_attention import (  # noqa: E402
@@ -362,6 +391,7 @@ from repro_torch.neuro import sim as neuro_sim  # noqa: E402
 from repro_torch.neuro.cable import (CellConfig, CellState,  # noqa: E402
                                      init_state)
 from repro_torch.neuro.ring import RingConfig, is_ring_head  # noqa: E402
+from repro_torch.parallel import mesh_of  # noqa: E402
 from repro_torch.audit import (AuditContext, Evidence,  # noqa: E402
                                ExpectationRegistry, ExpectedSignature, Rule,
                                RunAudit, Tracer)
@@ -2570,6 +2600,190 @@ def phase_neuro(dev) -> tuple[int, list]:
     return main_launches, rows
 
 
+# ------------------------------------------------------------- ring ranks
+
+RANK_WORLDS = ((1, "nccl"), (2, "gloo"), (4, "gloo"))
+RANK_TIMEOUT_S = 300        # a world's processes, start to exit
+COLLECTIVE_TIMEOUT_S = 120  # the rendezvous and every collective
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def ring_rank(backend: str, out: str) -> int:
+    """One rank of ring_ranks, in a process of its own: wire up from the
+    Slurm variables, shard the ring over a ``cells`` mesh, save what it
+    saw to ``out``/rank<r>.pt.  The one-rank world first times
+    ``init_benchmark``."""
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    wireup = WireUp.from_env()
+    if not wireup.is_distributed:   # one task: WireUp's default port
+        wireup = dataclasses.replace(
+            wireup, coordinator=f"localhost:{os.environ['REPRO_COORD_PORT']}")
+    init_distributed(wireup, dev, backend=backend,
+                     timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
+    r, world = wireup.process_id, wireup.num_processes
+    res = {"backend": torch.distributed.get_backend()}
+    try:
+        if world == 1:
+            res["init_benchmark"] = init_benchmark(
+                (1, 1), ("data", "model"), repeats=10, device="cuda")
+        mesh = mesh_of((world,), ("cells",), "cuda")
+        cfg = ring_config(RING_CELLS, 1, RING_T_END, RING_COMPARTMENTS)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        got = neuro_sim.simulate(cfg, device=dev, mesh=mesh)
+        res["launches"] = dict(ops.LAUNCHES)
+        res.update(wall_s=got.wall_s, total_spikes=got.total_spikes,
+                   counts=got.spike_counts.cpu(),
+                   wavefront=got.wavefront.cpu(),
+                   state=[t.cpu() for t in got.state])
+        # one epoch (the first: the stimulus is on), attested
+        shard = neuro_sim.Shard(cfg, dev, mesh)
+        state = init_state(shard.n_loc, cfg.cell, dev)
+        incoming = torch.zeros((cfg.delay_steps, shard.n_loc), device=dev)
+        with attest.record() as program:
+            shard.epoch(state, incoming, 0)
+        torch.cuda.synchronize()
+        report = attest.parse_program(program.text, world)
+        res["epoch"] = {
+            "collectives": [(op.kind, op.payload_bytes) for op in report.ops],
+            "findings": report.findings,
+            "lines": [line for line in program.lines
+                      if line.startswith(("c10d::", "kernel::", "plain::"))]}
+        torch.distributed.barrier()
+    finally:
+        torch.distributed.destroy_process_group()
+    torch.save(res, Path(out) / f"rank{r}.pt")
+    return 0
+
+
+def run_world(world: int, backend: str, tmp: Path) -> list[dict]:
+    """``world`` rank processes of ``ring_rank`` on the card, all at once;
+    each rank's results.  A rank that fails or outlives RANK_TIMEOUT_S
+    fails the phase; no process outlives this call."""
+    out = tmp / str(world)
+    out.mkdir()
+    env = {**os.environ, "SLURM_NTASKS": str(world),
+           "SLURM_STEP_NODELIST": "localhost",
+           "REPRO_COORD_PORT": str(free_port())}
+    procs = []
+    try:
+        for r in range(world):
+            log = open(out / f"rank{r}.log", "w")
+            procs.append((log, subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "ring_rank",
+                 backend, str(out)],
+                env={**env, "SLURM_PROCID": str(r)}, stdout=log,
+                stderr=subprocess.STDOUT)))
+        deadline = time.perf_counter() + RANK_TIMEOUT_S
+        for r, (log, proc) in enumerate(procs):
+            try:
+                rc = proc.wait(max(deadline - time.perf_counter(), 1))
+            except subprocess.TimeoutExpired:
+                rc = "timeout"
+            log.close()
+            text = (out / f"rank{r}.log").read_text()
+            check(rc == 0, f"ring_ranks: world {world} ({backend}) rank {r} "
+                  f"ended {rc}:\n{text[-3000:]}")
+    finally:
+        for log, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    return [torch.load(out / f"rank{r}.pt") for r in range(world)]
+
+
+def phase_ring_ranks(dev) -> dict:
+    """The sharded arbor_ring at 1 (NCCL), 2 and 4 (gloo) ranks against the
+    single-process kernel run; the attested epoch of every rank; the
+    one-rank world's init_benchmark.  Returns each world's launches by
+    rank."""
+    cfg = ring_config(RING_CELLS, 1, RING_T_END, RING_COMPARTMENTS)
+    want = neuro_sim.simulate(cfg, device=dev)
+    want_state = [t.cpu() for t in want.state]
+    steps = cfg.n_epochs * cfg.delay_steps
+    payload = cfg.delay_steps * cfg.n_cells
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for world, backend in RANK_WORLDS:
+            ranks = run_world(world, backend, Path(tmp))
+            got = ranks[0]
+            check(all(res["backend"] == backend for res in ranks),
+                  f"world {world}: backends {[r['backend'] for r in ranks]}")
+            same_counts = torch.equal(got["counts"], want.spike_counts.cpu())
+            same_fronts = torch.equal(got["wavefront"], want.wavefront.cpu())
+            check(same_counts and same_fronts,
+                  f"world {world}: {got['total_spikes']} spikes, fronts "
+                  f"{got['wavefront'].tolist()} != one process's "
+                  f"{want.total_spikes} {want.wavefront.tolist()}")
+            state_err = {f: float((a - b).abs().max()) for f, a, b in
+                         zip(CellState._fields, got["state"], want_state)}
+            check(all(e == 0.0 for e in state_err.values()),
+                  f"world {world}: final state differs from one process's "
+                  f"{state_err}")
+            launches[world] = [res["launches"]["cable_epoch"]
+                               for res in ranks]
+            for r, res in enumerate(ranks):
+                check(res["launches"]["cable_epoch"] == 2 * cfg.n_epochs
+                      and sum(res["launches"].values())
+                      == res["launches"]["cable_epoch"],
+                      f"world {world} rank {r}: launches {res['launches']}, "
+                      f"expected cable_epoch once an epoch of two runs")
+                epoch = res["epoch"]
+                check(epoch["collectives"] == [("all-gather", payload)],
+                      f"world {world} rank {r}: the epoch's collectives "
+                      f"{epoch['collectives']}")
+                staged = [f for f in epoch["findings"]
+                          if f["kind"] == "host-transfer"
+                          and f"over {backend}" in f["detail"]]
+                check(epoch["findings"] == (staged if backend == "gloo"
+                                            else [])
+                      and len(staged) == (backend == "gloo"),
+                      f"world {world} rank {r}: findings "
+                      f"{epoch['findings']}")
+                check(sum(line.startswith("kernel::cable_epoch")
+                          for line in epoch["lines"]) == 1
+                      and not any(line.startswith("plain::")
+                                  for line in epoch["lines"]),
+                      f"world {world} rank {r}: {epoch['lines']}")
+            wall = max(res["wall_s"] for res in ranks)
+            emit({"phase": "ring_ranks", "world": world, "backend": backend,
+                  "cells": cfg.n_cells, "compartments": RING_COMPARTMENTS,
+                  "t_end_ms": RING_T_END, "epochs": cfg.n_epochs,
+                  "total_spikes": got["total_spikes"],
+                  "spikes_equal_one_process": same_counts,
+                  "wavefront_equal_one_process": same_fronts,
+                  "state_bits_equal_one_process": True,
+                  "wall_s_by_rank": [res["wall_s"] for res in ranks],
+                  "wall_s": wall, "one_process_wall_s": want.wall_s,
+                  "cell_steps_per_s": steps * cfg.n_cells / wall,
+                  "cable_epoch_launches_by_rank": launches[world],
+                  "epoch_collectives": got["epoch"]["collectives"],
+                  "epoch_findings": [f["detail"][:160] for f in
+                                     got["epoch"]["findings"]],
+                  "epoch_lines": [line[:160] for line in
+                                  got["epoch"]["lines"]],
+                  "nccl_version": ".".join(
+                      map(str, torch.cuda.nccl.version()))})
+            if world == 1:
+                bench = got["init_benchmark"]
+                check(list(bench) == ["mesh_shape", "axes",
+                                      "mesh_construct_s",
+                                      "first_collective_s",
+                                      "steady_collective_s",
+                                      "steady_collective_max_s"],
+                      f"init_benchmark keys {list(bench)}")
+                emit({"phase": "init_benchmark", "backend": backend,
+                      "world": world, **bench})
+    return launches
+
+
 # ----------------------------------------------------------------- gather
 
 GATHER_LAYERS = 4       # full width, f32: 1.7 GB of embeddings, 0.8 a layer
@@ -3628,6 +3842,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     hh_launches = phase_epoch_hold(dev)
     epoch_launches, _ = phase_neuro(dev)
+    rank_launches = phase_ring_ranks(dev)
     hh_err, hh = phase_hh_timing(dev)
     epoch_err, epoch = phase_cable_epoch_timing(dev)
     rows = {"paged_attention": (launches["paged_attention"], err, timing),
@@ -3665,6 +3880,8 @@ def main() -> int:
         "epoch_kernel": "cable_epoch", "epoch_launches": epoch_launches,
         "epoch_example_launches": {"ring_simulation": examples[
             "ring_simulation"]["launches"]["cable_epoch"]},
+        "ring_ranks_launches": {f"world_{world}": by_rank for world, by_rank
+                                in rank_launches.items()},
         "epoch_ms": epoch["ms"], "epoch_plain_ms": epoch["plain_ms"],
         "epoch_bound_ms": epoch["bound_ms"],
         "epoch_bound_by": epoch["bound_by"], "epoch_max_abs_err": epoch_err}}
@@ -3684,4 +3901,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["ring_rank"]:
+        sys.exit(ring_rank(*sys.argv[2:4]))
     sys.exit(main())

@@ -4,10 +4,10 @@ Pure data, copied rather than imported so that the port never loads the
 JAX package.  Field names, defaults and ``reduced()`` match the reference
 exactly; ``tests/test_torch_layers.py`` holds the two copies equal.
 ``ShapeConfig``, ``SHAPES``, ``MeshConfig`` with its meshes and
-``TrainConfig`` are copied whole; ``RunConfig`` keeps the fields a
-single-GPU run reads (the mesh and sharding rules wait for the
-multi-GPU slice; ``use_pallas`` has no counterpart, since the port picks a
-kernel by the tensors' device).
+``TrainConfig`` are copied whole; ``RunConfig`` keeps the reference's
+fields but ``use_pallas``, which has no counterpart, since the port picks a
+kernel by the tensors' device.  Its ``mesh`` and ``rules`` come after
+``train``, so that a positional ``RunConfig(model, shape, train)`` holds.
 """
 from __future__ import annotations
 
@@ -191,11 +191,16 @@ class TrainConfig:
 
 @dataclass(frozen=True)
 class RunConfig:
-    """Everything one single-GPU run needs."""
+    """Everything one run needs; ``mesh`` and ``rules`` choose its sharding
+    (``parallel.rules.rules_for``)."""
 
     model: ModelConfig
     shape: ShapeConfig
     train: TrainConfig = field(default_factory=TrainConfig)
+    mesh: MeshConfig = SINGLE_POD
+    # sharding rule-set name (parallel/rules.py): 'baseline' is the
+    # paper-faithful portable default, others are perf-pass variants.
+    rules: str = "baseline"
 
 
 def reduced(model: ModelConfig, **overrides: Any) -> ModelConfig:

@@ -11,11 +11,14 @@ launches the kernel, ``plain::<name>_plain`` where a CPU tensor takes the
 plain version.  The program's text therefore shows which side every kernel
 call took.
 
-``parse_program`` reads that text as ``parse_hlo`` reads HLO: the c10d
-collectives become the ``TransportReport``'s ops, and every
-``aten::_local_scalar_dense`` (``.item()``, ``float(t)``) and every copy from
-a CUDA tensor to the CPU becomes a ``host-transfer`` finding, which the
-audit's ``train-transport`` rule forbids in a training step.
+A c10d collective's line ends in ``over <backend>``, the backend of its
+process group.  ``parse_program`` reads that text as ``parse_hlo`` reads
+HLO: the c10d collectives become the ``TransportReport``'s ops, and every
+``aten::_local_scalar_dense`` (``.item()``, ``float(t)``), every copy from a
+CUDA tensor to the CPU and every collective on CUDA tensors over gloo
+(which has no device transport: it stages them through host memory inside
+the op) becomes a ``host-transfer`` finding, which the audit's
+``train-transport`` rule forbids in a training step.
 
 Recording only watches: the ops run as they would without it, so the step's
 results are the same bit for bit.
@@ -43,6 +46,9 @@ _COLLECTIVE_KINDS = (("all_reduce", "all-reduce"), ("allreduce", "all-reduce"),
                      ("send", "collective-permute"),
                      ("recv", "collective-permute"))
 _TENSOR_RE = re.compile(r"(\w+)\[([\d,]*)\]@(\w+)")
+_OVER_RE = re.compile(r" over (\w+)$")
+# backends that move device tensors through host memory
+_HOST_STAGED = ("gloo",)
 
 
 def _describe(tensors) -> str:
@@ -50,6 +56,16 @@ def _describe(tensors) -> str:
         f"{str(t.dtype).removeprefix('torch.')}"
         f"[{','.join(map(str, t.shape))}]@{t.device.type}"
         for t in tensors if isinstance(t, torch.Tensor))
+
+
+def _backends(leaves) -> str:
+    """`` over <backend>`` for each process group among an op's
+    arguments."""
+    from torch._C._distributed_c10d import ProcessGroup
+    return "".join(
+        f" over {ProcessGroup.unbox(a)._get_backend_name()}" for a in leaves
+        if isinstance(a, torch.ScriptObject)
+        and a._type().name() == "ProcessGroup")
 
 
 def note(line_kind: str, name: str, *tensors: torch.Tensor) -> None:
@@ -66,9 +82,9 @@ class _Recorder(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
-        ins = _describe(tree_leaves((args, kwargs)))
-        self.lines.append(f"{func.name()}({ins}) -> "
-                          f"{_describe(tree_leaves(out))}")
+        leaves = tree_leaves((args, kwargs))
+        self.lines.append(f"{func.name()}({_describe(leaves)}) -> "
+                          f"{_describe(tree_leaves(out))}{_backends(leaves)}")
         return out
 
 
@@ -113,7 +129,9 @@ def _nbytes(tensors) -> int:
 def parse_program(text: str, n_devices: int = 1) -> TransportReport:
     """The transport report of a recorded program (``parse_hlo``'s
     counterpart): its c10d collectives, and a ``host-transfer`` finding for
-    each read of a scalar to the host and each device-to-host copy."""
+    each read of a scalar to the host, each device-to-host copy and each
+    collective on device tensors over a backend that stages them through
+    the host."""
     report = TransportReport()
     for i, line in enumerate(text.splitlines()):
         name, _, rest = line.partition("(")
@@ -126,6 +144,15 @@ def parse_program(text: str, n_devices: int = 1) -> TransportReport:
                     name=f"{name}#{i}", kind=kind,
                     payload_bytes=_nbytes(_tensors(outs) or _tensors(ins)),
                     group_size=n_devices, computation="step"))
+                over = _OVER_RE.search(line)
+                if (over and over.group(1) in _HOST_STAGED
+                        and any(dev == "cuda"
+                                for *_, dev in _tensors(rest))):
+                    report.findings.append({
+                        "severity": "warn", "kind": "host-transfer",
+                        "detail": f"op {i}: a collective on device tensors "
+                                  f"over {over.group(1)}, which stages them "
+                                  f"through host memory ({line})"})
         if name == "aten::_local_scalar_dense":
             report.findings.append({
                 "severity": "warn", "kind": "host-transfer",

@@ -7,8 +7,11 @@ step attested (``core.attest``: its dispatched program fingerprinted, its
 transport report judged by ``RunAudit``) → checkpoint/restart loop with
 straggler tracking, traced as ``train-step``, ``ckpt-save`` and
 ``ckpt-restore`` events.  ``manifest.json`` and ``result.json`` land in
-``--out``.  Runs on the GPU unless ``--device cpu`` is given, and raises
-where CUDA is asked for and absent:
+``--out``: the bound manifest is written before the loop, as the
+reference writes its own, so that a resumed run with no step left has one
+too, and written again with the program once the first step is attested.
+Runs on the GPU unless ``--device cpu`` is given, and raises where CUDA is
+asked for and absent:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-7b \\
         --steps 4 [--device cpu] [--resume --out DIR]
@@ -56,9 +59,6 @@ from repro_torch.train.step import init_train_state, make_train_step
 DEFAULT_OUT = str(Path(tempfile.gettempdir()) / "repro_torch_train")
 # the families whose batches need more than the pipeline's tokens and labels
 MISSING_EMBEDS = {"vlm": "image_embed", "encdec": "audio_embed"}
-# the reference's RunConfig.rules: the paper-faithful sharding rule set,
-# which one device applies to nothing
-RULES = "baseline"
 
 
 def train(arch: str, *, smoke: bool = True, steps: int = 20,
@@ -88,11 +88,12 @@ def train(arch: str, *, smoke: bool = True, steps: int = 20,
                      remat="full", seed=seed)
     run = RunConfig(model=cfg, shape=shape, train=tc)
     model = build(cfg)
-    manifest = Manifest(PortableEnv.capture(cfg, shape, tc, RULES)).bind(
+    manifest = Manifest(PortableEnv.capture(cfg, shape, tc, run.rules)).bind(
         dev, TINY_MESH)
 
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
+    (out / "manifest.json").write_text(manifest.to_json())
     ckpt = CheckpointManager(out / "ckpt")
     diag = Diagnostics()
     audit = RunAudit(AuditContext(workload="train", family=cfg.family,

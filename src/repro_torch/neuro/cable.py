@@ -19,6 +19,7 @@ what ``neuro.sim.run`` reaches on the CPU) passes ``hh_soma_update``.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import NamedTuple, Sequence
 
@@ -56,9 +57,13 @@ class CellState(NamedTuple):
     g_syn: torch.Tensor   # [n]
 
 
+@functools.lru_cache(maxsize=64)
 def _f32_exp(x: float) -> float:
     """``exp`` of a Python float evaluated as JAX evaluates ``jnp.exp`` of
-    one: in float32 (weak type), then held exactly as a Python float."""
+    one: in float32 (weak type), then held exactly as a Python float.
+    Cached: every dt step reads its constants, and a recorded program
+    (``core.attest``) should show the step's work, not a host constant's
+    scalar read each step."""
     return float(torch.exp(torch.tensor(x, dtype=torch.float32)))
 
 

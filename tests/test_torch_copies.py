@@ -23,6 +23,12 @@ COPIES = [
     "audit/timeline.py", "audit/ledger.py", "audit/expectations.py",
     "audit/report.py", "audit/metrics.py",
     "runtime/health.py",
+    "parallel/rules.py",
+    "configs/deepseek_7b.py", "configs/deepseek_coder_33b.py",
+    "configs/granite_moe_1b_a400m.py", "configs/llama_3_2_vision_11b.py",
+    "configs/mamba2_2_7b.py", "configs/phi3_medium_14b.py",
+    "configs/phi3_mini_3_8b.py", "configs/qwen3_moe_30b_a3b.py",
+    "configs/whisper_medium.py", "configs/zamba2_2_7b.py",
 ]
 NOT_VERBATIM: dict[str, str] = {}
 SHIFT = len("repro_torch") - len("repro")

@@ -12,6 +12,7 @@ scripts, triples, plans, tags, losses) unless a tolerance is stated.
 import ast
 import contextlib
 import dataclasses
+import functools
 import json
 from pathlib import Path
 
@@ -161,12 +162,15 @@ def test_init_distributed_binds_the_triple(monkeypatch, device, backend):
 
 @pytest.mark.parametrize("arch", sorted(R_CONFIGS.ALL_ARCHS))
 def test_portable_env_dicts_equal_the_reference(arch):
+    # each package's RunConfig default: the rule set its launcher records
+    rules = RunConfig.__dataclass_fields__["rules"].default
+    assert rules == R_CONFIGS.RunConfig.__dataclass_fields__["rules"].default
     t = T_MAN.PortableEnv.capture(T_CONFIGS.ALL_ARCHS[arch],
                                   T_CONFIGS.SHAPES["train_4k"],
-                                  T_CONFIGS.TrainConfig(), "baseline")
+                                  T_CONFIGS.TrainConfig(), rules)
     r = R_MAN.PortableEnv.capture(R_CONFIGS.ALL_ARCHS[arch],
                                   R_CONFIGS.SHAPES["train_4k"],
-                                  R_CONFIGS.TrainConfig(), "baseline")
+                                  R_CONFIGS.TrainConfig(), rules)
     for part in ("model", "shape", "train", "rules", "numpy_version",
                  "python_version", "dtype_policy"):
         assert getattr(t, part) == getattr(r, part), part
@@ -531,6 +535,33 @@ def test_train_cli_result_and_manifest_match_the_reference(tmp_path,
     bare = T_TRAIN.train(ARCH, out_dir=str(tmp_path / "bare"), device="cpu",
                          **kw)
     assert bare["losses"] == port["losses"]
+
+
+def test_resumed_run_with_no_steps_left_writes_its_manifest(tmp_path,
+                                                            monkeypatch):
+    """A run resumed at its last step runs no step, and still writes the
+    bound manifest, as the reference's launcher does: the same image hash
+    as the uninterrupted run's, the reference's keys, no program yet."""
+    from repro.launch.train import train as r_train
+    for var in SLURM_VARS:
+        monkeypatch.delenv(var, raising=False)
+    kw = dict(steps=2, seq_len=32, global_batch=2, ckpt_every=2)
+    manifests = {}
+    for name, run in (("ref", r_train),
+                      ("port", functools.partial(T_TRAIN.train,
+                                                 device="cpu"))):
+        out = tmp_path / name
+        first = run(ARCH, out_dir=str(out), **kw)
+        whole = json.loads((out / "manifest.json").read_text())
+        (out / "manifest.json").unlink()
+        resumed = run(ARCH, out_dir=str(out), resume=True, **kw)
+        manifests[name] = json.loads((out / "manifest.json").read_text())
+        assert (manifests[name]["image_hash"] == whole["image_hash"]
+                == first["image_hash"] == resumed["image_hash"]), name
+        assert resumed["audit"]["trace"] == {"ckpt-restore": 1}, name
+    assert list(manifests["port"]) == list(manifests["ref"])
+    assert manifests["port"]["binding"]["mesh_shape"] == [1, 1]
+    assert not manifests["port"]["attestation"]
 
 
 def test_train_cli_wires_up_from_slurm(tmp_path, monkeypatch):

@@ -209,11 +209,36 @@ def test_multi_ring_independence():
         assert torch.equal(counts[0], counts[r])
 
 
-def test_simulate_refuses_a_mesh_and_defaults_to_the_gpu():
+def test_simulate_refuses_a_mesh_and_defaults_to_the_gpu(tmp_path,
+                                                         monkeypatch):
+    """What stays refused: a mesh that is not a ``DeviceMesh``, and a mesh
+    whose size does not divide ``n_cells`` (a real one-rank gloo group
+    holds the 8 cells; a stand-in mesh of 3 ranks does not).  The sharded
+    ring itself is ``tests/test_torch_distributed.py``'s."""
+    import datetime
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.parallel import mesh_of
     cfg = ring.RingConfig(n_cells=8, t_end_ms=5.0,
                           cell=cable.CellConfig(n_compartments=2))
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         sim.simulate(cfg, device="cpu", mesh=object())
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = mesh_of((1,), ("cells",), "cpu")
+        assert isinstance(mesh, DeviceMesh)
+        assert sim.simulate(cfg, device="cpu", mesh=mesh).total_spikes == \
+            sim.simulate(cfg, device="cpu").total_spikes
+        monkeypatch.setattr(mesh, "size", lambda: 3)
+        with pytest.raises(ValueError, match="8 cells do not split evenly "
+                                             "over 3 ranks"):
+            sim.simulate(cfg, device="cpu", mesh=mesh)
+    finally:
+        dist.destroy_process_group()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             sim.simulate(cfg)

@@ -108,7 +108,7 @@ def _np(t):
 def test_train_configs_match_reference():
     """The copied ShapeConfig and TrainConfig equal the reference's, field
     for field with defaults; RunConfig's fields are the reference's less
-    the mesh, the sharding rules and ``use_pallas``."""
+    ``use_pallas``, with the reference's defaults."""
     from repro.configs import base as r_base
     from repro_torch.configs import base as t_base
     for name in ("ShapeConfig", "TrainConfig"):
@@ -119,7 +119,11 @@ def test_train_configs_match_reference():
         assert r_fields == t_fields, name
     assert {f.name for f in dataclasses.fields(RunConfig)} == (
         {f.name for f in dataclasses.fields(r_base.RunConfig)}
-        - {"mesh", "rules", "use_pallas"})
+        - {"use_pallas"})
+    for f in dataclasses.fields(RunConfig):
+        if f.name in ("mesh", "rules"):
+            assert repr(f.default) == repr(getattr(r_base.RunConfig,
+                                                   f.name)), f.name
 
 
 # ---------------------------------------------------------- attention, loss
