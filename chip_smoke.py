@@ -319,6 +319,28 @@ non-zero without printing a result:
                   over NCCL: the first thing the one-rank process of
                   ring_ranks does, so its first collective sets up NCCL's
                   communicator.  The reference's keys.
+41. tp_train    — (run after ring_ranks) deepseek-7b at full width cut to
+                  2 layers (1.24 B), seq 2048, batch 4, remat full, bf16,
+                  the ``train`` rules (FSDP over data, tensor and sequence
+                  parallelism over model), 2 steps on each of the meshes
+                  (1, 1) over one NCCL rank, (1, 2) and (2, 2) over gloo
+                  ranks sharing the card (``python3 chip_smoke.py tp_rank
+                  <backend> <dir> <arch> <mesh>``, wired up as ring_ranks'
+                  ranks).  The one-rank process first takes the same steps
+                  with no mesh bound: every rank's losses within 2e-2 of
+                  that one-process step's, the flash kernel launched on
+                  every rank's heads for every self-attention call (steps
+                  x layers x 2), no other path.  The first sharded step is
+                  attested: its collectives by kind with their payload
+                  bytes (all-gather and reduce-scatter, no all-to-all),
+                  their backend and ``host-transfer`` findings (every gloo
+                  collective on the card's tensors).  Losses, grad norms,
+                  ms a step and peak memory by rank.
+42. moe_ep_train — the same for granite-moe-1b-a400m at full width cut to 4
+                  layers over (1, 1) and (1, 2): 16 experts a rank, the
+                  slots exchanged by all-to-all, two a layer forward (six
+                  in the attested step with the remat recompute and the
+                  backward).
 
 Every engine the serve, gather_serve, cluster, vlm_serve and encdec_serve
 phases build must leave ``torch.cuda.memory_allocated()`` where it found
@@ -331,7 +353,8 @@ moe runs' launches, the paged row the cluster runs' launches by policy and
 the every-row timing, the flash row the vlm and encdec phases' launches
 by mode; the flash row also the train_cli, env_manifest and examples'
 launches, the paged row serve_lm's and the HH row ring_simulation's
-epoch launches and ring_ranks' launches by world size and rank), the
+epoch launches and ring_ranks' launches by world size and rank; the flash
+row also tp_train's and moe_ep_train's by mesh and rank), the
 card's name
 and power limit as ``nvidia-smi`` reports them, and last ``{"ok": true,
 "device": ...}``.
@@ -391,7 +414,9 @@ from repro_torch.neuro import sim as neuro_sim  # noqa: E402
 from repro_torch.neuro.cable import (CellConfig, CellState,  # noqa: E402
                                      init_state)
 from repro_torch.neuro.ring import RingConfig, is_ring_head  # noqa: E402
-from repro_torch.parallel import mesh_of  # noqa: E402
+from repro_torch.launch import bind as launch_bind  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.parallel import RULESETS, bind, mesh_of  # noqa: E402
 from repro_torch.audit import (AuditContext, Evidence,  # noqa: E402
                                ExpectationRegistry, ExpectedSignature, Rule,
                                RunAudit, Tracer)
@@ -399,8 +424,8 @@ from repro_torch.serve import (ClusterEngine, PagedServeEngine,  # noqa: E402
                                Request, SamplingParams, ServeEngine,
                                WorkloadSpec, compare_engines, generate,
                                token_matrix)
-from repro_torch.train.step import (init_train_state,  # noqa: E402
-                                    make_train_step)
+from repro_torch.train.step import (TrainState,  # noqa: E402
+                                    init_train_state, make_train_step)
 
 ARCH = "deepseek-7b"
 SLOTS, BLOCK, CHUNK, MAX_LEN = 4, 16, 16, 1024
@@ -2662,10 +2687,12 @@ def ring_rank(backend: str, out: str) -> int:
     return 0
 
 
-def run_world(world: int, backend: str, tmp: Path) -> list[dict]:
-    """``world`` rank processes of ``ring_rank`` on the card, all at once;
-    each rank's results.  A rank that fails or outlives RANK_TIMEOUT_S
-    fails the phase; no process outlives this call."""
+def run_world(world: int, backend: str, tmp: Path, entry: str = "ring_rank",
+              *args: str) -> list[dict]:
+    """``world`` rank processes of ``entry`` (``ring_rank`` or
+    ``tp_rank``, with ``args``) on the card, all at once; each rank's
+    results.  A rank that fails or outlives RANK_TIMEOUT_S fails the
+    phase; no process outlives this call."""
     out = tmp / str(world)
     out.mkdir()
     env = {**os.environ, "SLURM_NTASKS": str(world),
@@ -2676,8 +2703,8 @@ def run_world(world: int, backend: str, tmp: Path) -> list[dict]:
         for r in range(world):
             log = open(out / f"rank{r}.log", "w")
             procs.append((log, subprocess.Popen(
-                [sys.executable, str(Path(__file__).resolve()), "ring_rank",
-                 backend, str(out)],
+                [sys.executable, str(Path(__file__).resolve()), entry,
+                 backend, str(out), *args],
                 env={**env, "SLURM_PROCID": str(r)}, stdout=log,
                 stderr=subprocess.STDOUT)))
         deadline = time.perf_counter() + RANK_TIMEOUT_S
@@ -2688,7 +2715,7 @@ def run_world(world: int, backend: str, tmp: Path) -> list[dict]:
                 rc = "timeout"
             log.close()
             text = (out / f"rank{r}.log").read_text()
-            check(rc == 0, f"ring_ranks: world {world} ({backend}) rank {r} "
+            check(rc == 0, f"{entry}: world {world} ({backend}) rank {r} "
                   f"ended {rc}:\n{text[-3000:]}")
     finally:
         for log, proc in procs:
@@ -2781,6 +2808,289 @@ def phase_ring_ranks(dev) -> dict:
                       f"init_benchmark keys {list(bench)}")
                 emit({"phase": "init_benchmark", "backend": backend,
                       "world": world, **bench})
+    return launches
+
+
+# ------------------------------------------------- tensor-parallel training
+
+# full width, depth cut so that four ranks' states and one process's fit
+# the card together with the phases' rank processes
+TP_LAYERS = {ARCH: 2, MOE_TRAIN_ARCH: 4}
+TP_MESHES = {ARCH: ((1, 1), (1, 2), (2, 2)), MOE_TRAIN_ARCH: ((1, 1), (1, 2))}
+TP_SEQ, TP_BATCH, TP_STEPS = 2048, 4, 2
+TP_TOL = 2e-2       # |loss - one process's|, tests/test_integration.py:56
+# step 1 against the one-process step, every leaf gathered: each gradient's
+# relative error, the update's (master weights after minus before) over the
+# whole tree, and the step's grad norm, relative.  bf16 noise reads at most
+# 6e-3, 1.6e-2 and 1e-4 on the card; a gradient missing its sum over two
+# ranks, or doubled, reads 0.7-1.0 on its leaf
+TP_GRAD_TOL, TP_UPDATE_TOL, TP_NORM_TOL = 5e-2, 1e-1, 5e-3
+
+
+def named_leaves(tree, prefix: str = "") -> dict:
+    """A tree's leaves by slash-joined key, dict keys sorted."""
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    out = {}
+    for k in sorted(tree):
+        out.update(named_leaves(tree[k], f"{prefix}/{k}" if prefix else k))
+    return out
+
+
+def tp_batch(model, host_batch, dev, mesh=None) -> dict:
+    batch = {k: torch.as_tensor(a, device=dev) for k, a in host_batch.items()}
+    if mesh is None:
+        return batch
+    return launch_bind.shard_batch(
+        model, ShapeConfig("train", "train", TP_SEQ, TP_BATCH), mesh, batch)
+
+
+def tp_grads(model, params, host_batch, dev, mesh=None) -> tuple:
+    """Step 1's gradients as the train step takes them (the loss with remat
+    full and the default z-loss, then its backward), on the host: this
+    rank's shards under ``mesh``; and their global norm as the step's
+    clipping reduces it over the shards."""
+    tc = TrainConfig(remat="full")
+    live = P.tree_map(lambda t: t.detach().requires_grad_(True), params)
+    loss, _ = model.loss(live, tp_batch(model, host_batch, dev, mesh),
+                         remat=tc.remat, z_loss=tc.z_loss)
+    loss.backward()
+    grads = P.tree_map(lambda t: t.grad, live)
+    groups = (P.shard_groups(model.param_specs())
+              if mesh is not None and mesh.size() > 1 else None)
+    norm = float(adamw.clip_by_global_norm(grads, 1.0, groups)[1])
+    del live, loss
+    return P.tree_map(lambda t: t.cpu(), grads), norm
+
+
+def tp_compare(ctx, model, got: dict, want: dict | None, dev) -> dict:
+    """Each leaf of ``got`` (a tree of this rank's host shards under the
+    bound mesh) gathered to its global tensor on the card, one leaf at a
+    time, held on rank 0 against ``want``'s (the one-process tree, flat):
+    each leaf's relative L2 error, and the whole tree's, and its norm."""
+    specs = named_leaves(P.partition(model.param_specs()))
+    rows, sq_want, sq_diff, sq_got = {}, 0.0, 0.0, 0.0
+    for key, local in named_leaves(got).items():
+        full = ctx.unshard(local.to(dev), specs[key]).float()
+        if want is not None:
+            ref = want[key].to(dev).float()
+            d2 = float(torch.sum(torch.square(full - ref)))
+            w2 = float(torch.sum(torch.square(ref)))
+            g2 = float(torch.sum(torch.square(full)))
+            rows[key] = (d2 / w2) ** 0.5 if w2 else d2 ** 0.5
+            sq_want, sq_diff, sq_got = sq_want + w2, sq_diff + d2, sq_got + g2
+            del ref
+        del full
+    return {"by_leaf": rows, "rel_err": (sq_diff / sq_want) ** 0.5
+            if want is not None else None, "norm": sq_got ** 0.5}
+
+
+def tp_steps(model, step_fn, state, host_batches, dev, mesh=None) -> dict:
+    """``step_fn`` over ``host_batches`` (this rank's shards of them under
+    ``mesh``), launch counts zeroed just before and read just after, each
+    step timed from its batch's copy to its loss's read, the first one
+    attested under a mesh of more than one rank.  Step 1's update (the
+    master weights after it minus before) is kept on the host, outside
+    the steps' clocks."""
+    before = P.tree_map(lambda t: t.to("cpu", copy=True), state.opt.master)
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = {"losses": [], "grad_norms": [], "ms": []}
+    for i, host_batch in enumerate(host_batches):
+        if mesh is not None:
+            torch.distributed.barrier()
+        t0 = time.perf_counter()
+        batch = tp_batch(model, host_batch, dev, mesh)
+        attested = i == 0 and mesh is not None and mesh.size() > 1
+        with (attest.record() if attested
+              else contextlib.nullcontext()) as program:
+            state, metrics = step_fn(state, batch)
+        out["losses"].append(float(metrics["loss"]))   # the host sync
+        out["grad_norms"].append(float(metrics["grad_norm"]))
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            out["update"] = P.tree_map2(lambda a, b: a.cpu() - b,
+                                        state.opt.master, before)
+            del before
+        if attested:
+            report = attest.parse_program(program.text, mesh.size())
+            kinds: dict = {}
+            for op in report.ops:
+                row = kinds.setdefault(op.kind, {"count": 0, "bytes": 0})
+                row["count"] += 1
+                row["bytes"] += op.payload_bytes
+            out["collectives"] = kinds
+            out["backends"] = sorted({line.rsplit(" over ", 1)[1]
+                                      for line in program.lines
+                                      if " over " in line})
+            out["findings"] = [f["kind"] for f in report.findings]
+            out["staged"] = sum(" over gloo" in f["detail"]
+                                for f in report.findings)
+    out["launches"] = dict(ops.LAUNCHES)
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return out
+
+
+def tp_rank(backend: str, out: str, arch: str, dims: str) -> int:
+    """One rank of tp_train or moe_ep_train, in a process of its own: wire
+    up from the Slurm variables, train ``arch`` (full width, TP_LAYERS
+    deep) for TP_STEPS steps on its shards of a ``dims`` mesh under the
+    ``train`` rules; the one-rank world first takes the same steps with
+    no mesh bound (the one-process step).  Saves to ``out``/rank<r>.pt."""
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    wireup = WireUp.from_env()
+    if not wireup.is_distributed:
+        wireup = dataclasses.replace(
+            wireup, coordinator=f"localhost:{os.environ['REPRO_COORD_PORT']}")
+    init_distributed(wireup, dev, backend=backend,
+                     timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
+    r, world = wireup.process_id, wireup.num_processes
+    shape = tuple(int(n) for n in dims.split("x"))
+    cfg = dataclasses.replace(ALL_ARCHS[arch], n_layers=TP_LAYERS[arch])
+    model, step_fn, batches, _ = train_setup(cfg, TP_SEQ, TP_BATCH,
+                                             TP_STEPS - 1, dev)
+    res = {"backend": torch.distributed.get_backend(), "mesh": shape}
+    reference = Path(out).parent / "one_process_step1.pt"
+    try:
+        params = model.init_params(
+            torch.Generator(device=dev).manual_seed(SEED), dev)
+        if world == 1:
+            one = P.tree_map(torch.clone, params)
+            grads, _ = tp_grads(model, one, batches[0], dev)
+            res["one_process"] = tp_steps(
+                model, step_fn, TrainState(one, adamw.init(one)), batches,
+                dev)
+            update = named_leaves(res["one_process"].pop("update"))
+            res["one_process"]["update_norm"] = sum(
+                float(torch.sum(torch.square(t))) for t in update.values()
+            ) ** 0.5
+            torch.save({"grads": named_leaves(grads), "update": update},
+                       reference)
+            del one, grads, update
+            torch.cuda.empty_cache()
+        mesh = mesh_of(shape, ("data", "model"), "cuda")
+        with bind(mesh, RULESETS["train"]) as ctx:
+            local = launch_bind.shard(
+                params, launch_bind.state_shardings(model, mesh).params)
+            del params
+            grads, clip_norm = tp_grads(model, local, batches[0], dev, mesh)
+            torch.cuda.empty_cache()
+            sharded = tp_steps(
+                model, step_fn, TrainState(local, adamw.init(local)),
+                batches, dev, mesh)
+            want = torch.load(reference, mmap=True) if r == 0 else None
+            update = sharded.pop("update")
+            sharded["grads"] = tp_compare(ctx, model, grads,
+                                          want and want["grads"], dev)
+            sharded["grads"]["clip_norm"] = clip_norm
+            sharded["update"] = tp_compare(ctx, model, update,
+                                           want and want["update"], dev)
+            res["sharded"] = sharded
+            del grads, update, want
+        torch.distributed.barrier()
+    finally:
+        torch.distributed.destroy_process_group()
+    torch.save(res, Path(out) / f"rank{r}.pt")
+    return 0
+
+
+def phase_tp_train(arch: str, phase: str) -> dict:
+    """``arch`` at full width, TP_LAYERS deep, seq 2048, batch 4, remat
+    full, bf16, the ``train`` rules, over each of TP_MESHES: one NCCL rank
+    (1, 1), then gloo ranks sharing the card.  Every rank's losses within
+    TP_TOL of the one-process step's, the flash kernel launched on every
+    self-attention call of every rank (steps x layers x 2: the forward and
+    the remat recompute), the attested first step's collectives (dense: no
+    all-to-all; moe: six a layer, two forward, two recomputed, two
+    backward).  Returns the flash launches by mesh and rank."""
+    cfg = dataclasses.replace(ALL_ARCHS[arch], n_layers=TP_LAYERS[arch])
+    flash_each = TP_STEPS * cfg.n_layers * 2
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        one = None
+        for dims in TP_MESHES[arch]:
+            world = dims[0] * dims[1]
+            backend = "nccl" if world == 1 else "gloo"
+            key = "x".join(map(str, dims))
+            ranks = run_world(world, backend, Path(tmp), "tp_rank", arch, key)
+            if world == 1:
+                one = ranks[0]["one_process"]
+                check(one["launches"]["flash_attention"] == flash_each,
+                      f"{phase}: one process launched "
+                      f"{one['launches']} (want {flash_each} flash)")
+            got = [res["sharded"] for res in ranks]
+            for rk, res in enumerate(got):
+                err = max(abs(a - b) for a, b in zip(res["losses"],
+                                                     one["losses"]))
+                check(err <= TP_TOL, f"{phase} {key} rank {rk}: losses "
+                      f"{res['losses']} vs one process {one['losses']}")
+                check(res["launches"]["flash_attention"] == flash_each,
+                      f"{phase} {key} rank {rk}: launches "
+                      f"{res['launches']} (want {flash_each} flash)")
+                check(res["losses"] == got[0]["losses"],
+                      f"{phase} {key}: ranks' losses differ")
+            a2a = 0
+            if world > 1:
+                kinds = got[0]["collectives"]
+                a2a = kinds.get("all-to-all", {}).get("count", 0)
+                check({"all-gather", "reduce-scatter"} <= set(kinds)
+                      and a2a == (6 * cfg.n_layers if cfg.family == "moe"
+                                  and dims[1] > 1 else 0)
+                      and got[0]["backends"] == ["gloo"]
+                      and set(got[0]["findings"]) == {"host-transfer"}
+                      and got[0]["staged"] == len(got[0]["findings"]),
+                      f"{phase} {key}: collectives {kinds}, backends "
+                      f"{got[0]['backends']}, findings "
+                      f"{got[0]['findings']}")
+            launches[key] = [res["launches"]["flash_attention"]
+                             for res in got]
+            emit({"phase": phase, "arch": cfg.name, "mesh": list(dims),
+                  "backend": backend, "layers": cfg.n_layers,
+                  "params": cfg.param_count(), "seq": TP_SEQ,
+                  "batch": TP_BATCH, "losses": got[0]["losses"],
+                  "grad_norms": got[0]["grad_norms"],
+                  "one_process_losses": one["losses"],
+                  "one_process_grad_norms": one["grad_norms"],
+                  "max_abs_dloss": max(abs(a - b) for a, b in zip(
+                      got[0]["losses"], one["losses"])),
+                  "ms_per_step_by_rank": [res["ms"] for res in got],
+                  "one_process_ms": one["ms"],
+                  "peak_gb_by_rank": [res["peak_gb"] for res in got],
+                  "flash_launches_by_rank": launches[key],
+                  "collectives": got[0].get("collectives", {}),
+                  "all_to_all_per_layer_forward": a2a // 3 // cfg.n_layers,
+                  "backends": got[0].get("backends", []),
+                  "host_transfer_findings": len(got[0].get("findings", [])),
+                  "step1_grad_rel_err_by_leaf": got[0]["grads"]["by_leaf"],
+                  "step1_grad_rel_err": got[0]["grads"]["rel_err"],
+                  "step1_grad_norm_gathered": got[0]["grads"]["norm"],
+                  "step1_grad_norm_clip": got[0]["grads"]["clip_norm"],
+                  "step1_update_rel_err_by_leaf": got[0]["update"]["by_leaf"],
+                  "step1_update_rel_err": got[0]["update"]["rel_err"],
+                  "step1_update_norm": got[0]["update"]["norm"],
+                  "one_process_step1_update_norm": one["update_norm"]})
+            if cfg.family == "moe":
+                # capacity is per shard, as in the reference: the shards
+                # drop other tokens than one process does, so step 1's
+                # gradients differ by what was dropped (printed, not held)
+                continue
+            grads, update = got[0]["grads"], got[0]["update"]
+            worst = max(grads["by_leaf"], key=grads["by_leaf"].get)
+            check(grads["by_leaf"][worst] <= TP_GRAD_TOL,
+                  f"{phase} {key}: step 1's {worst} gradient is "
+                  f"{grads['by_leaf'][worst]} off the one process's")
+            check(update["rel_err"] <= TP_UPDATE_TOL,
+                  f"{phase} {key}: step 1's update is {update['rel_err']} "
+                  f"off the one process's")
+            for name, norm in (("step", got[0]["grad_norms"][0]),
+                               ("clipping", grads["clip_norm"]),
+                               ("gathered", grads["norm"])):
+                check(abs(norm - one["grad_norms"][0])
+                      <= TP_NORM_TOL * one["grad_norms"][0],
+                      f"{phase} {key}: step 1's grad norm by {name} {norm} "
+                      f"vs one process {one['grad_norms'][0]}")
     return launches
 
 
@@ -3843,6 +4153,9 @@ def main() -> int:
     hh_launches = phase_epoch_hold(dev)
     epoch_launches, _ = phase_neuro(dev)
     rank_launches = phase_ring_ranks(dev)
+    torch.cuda.empty_cache()
+    tp_launches = phase_tp_train(ARCH, "tp_train")
+    ep_launches = phase_tp_train(MOE_TRAIN_ARCH, "moe_ep_train")
     hh_err, hh = phase_hh_timing(dev)
     epoch_err, epoch = phase_cable_epoch_timing(dev)
     rows = {"paged_attention": (launches["paged_attention"], err, timing),
@@ -3875,7 +4188,9 @@ def main() -> int:
                              if "flash_attention" in EXAMPLES[name][0]},
         "moe_launches": moe_train_launches["flash_attention"],
         "vlm_launches": family[VLM_ARCH],
-        "encdec_launches": family[ENCDEC_ARCH]},
+        "encdec_launches": family[ENCDEC_ARCH],
+        "tp_train_launches": tp_launches,
+        "moe_ep_train_launches": ep_launches},
         "hh_step": {
         "epoch_kernel": "cable_epoch", "epoch_launches": epoch_launches,
         "epoch_example_launches": {"ring_simulation": examples[
@@ -3903,4 +4218,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["ring_rank"]:
         sys.exit(ring_rank(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["tp_rank"]:
+        sys.exit(tp_rank(*sys.argv[2:6]))
     sys.exit(main())

@@ -26,8 +26,10 @@ reference's does (its launcher fails on the missing embeddings).  They
 train through ``Model.loss`` and ``train.step.make_train_step`` on batches
 from ``Model.sample_batch``.
 
-One device, so the mesh is ``TINY_MESH`` and ``--production-mesh`` is
-refused: the production mesh belongs to the multi-GPU slice.
+The launcher keeps ``TINY_MESH``, as the reference's does, and refuses
+``--production-mesh``: that mesh needs 256 or 512 ranks.  A sharded step
+runs through ``parallel.bind`` and ``launch.bind`` (see
+``train.step.make_train_step``).
 """
 from __future__ import annotations
 
@@ -70,8 +72,8 @@ def train(arch: str, *, smoke: bool = True, steps: int = 20,
     steps, checkpointing every ``ckpt_every``; ``resume`` continues from
     the latest checkpoint in ``out_dir``."""
     if production_mesh:
-        raise ValueError("the production mesh belongs to the multi-GPU "
-                         "slice of the port; this launcher runs one device")
+        raise ValueError("the production mesh needs 256 or 512 ranks; "
+                         "this launcher runs TINY_MESH")
     cfg = reduced(resolve_arch(arch)) if smoke else resolve_arch(arch)
     embeds = MISSING_EMBEDS.get(cfg.family)
     if embeds:

@@ -2,7 +2,7 @@
 encoder, cross-attention) and the decode paths (the paged serving path and
 the contiguous oracle).
 
-Ports ``repro.models.attention`` at tp=1:
+Ports ``repro.models.attention``:
 
 * ``full_attention`` — attention over whole sequences from position 0:
   causal or bidirectional self-attention, or cross-attention from ``x``
@@ -11,7 +11,15 @@ Ports ``repro.models.attention`` at tp=1:
   ``kernels.ops.flash_attention`` (the CUDA kernel on a card, its plain
   version on the CPU), causal or not; the rest, cross-attention always,
   take the reference's q-chunked ``_attend``.  ``return_kv`` hands a
-  prefill its cache rows.
+  prefill its cache rows.  Under a ``model`` axis of ``tp`` ranks
+  (sequence-parallel training) each rank runs ``h_run / tp`` of the
+  padded q heads (``HeadGeom(tp)``) through the same kernel: the
+  sequence is gathered into the projections (``sp_col_projects``), K and
+  V are projected whole and repeated to the q heads, and ``rs_project``
+  reduce-scatters the output projection back to the sequence shards.
+  The reference takes its Pallas kernel only at tp=1 under GSPMD and
+  names ``shard_map`` deployments for the rest; the port's explicit
+  collectives are such a deployment.  The decode paths run at tp=1.
 
 * ``paged_chunk_decode_attention`` — C query tokens per lane, KV written
   and attended through each lane's page table (the paged engine's step);
@@ -37,9 +45,46 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import head_geom, rmsnorm, rope
+from repro_torch.models.layers import (HeadGeom, head_geom, pad_group_dim,
+                                       rmsnorm, rope, rs_project,
+                                       sp_col_projects)
+from repro_torch.parallel import comm
+from repro_torch.parallel.ctx import _current
 
 NEG_INF = -1e9
+
+
+def tp_size() -> int:
+    ctx = _current()
+    if ctx is None:
+        return 1
+    return ctx.axis_sizes.get("model", 1)
+
+
+def _model_whole(w: torch.Tensor, dim: int, size: int) -> torch.Tensor:
+    """``w`` whole along ``dim`` (``size`` there): all-gathered over
+    ``model`` where this rank holds a shard of it (reduce-scatter
+    backward)."""
+    if w.shape[dim] == size:
+        return w
+    return comm.all_gather(w, dim, _current().group(("model",)))
+
+
+def _run_heads(w: torch.Tensor, geom: HeadGeom, axis_is_out: bool
+               ) -> torch.Tensor:
+    """This rank's ``h_run / tp`` padded q heads of ``wq`` (``axis_is_out``)
+    or ``wo``.  Where the stored shard is those heads already (no padding,
+    heads split evenly) it is used as it is; otherwise the heads are
+    gathered whole, padded (``pad_group_dim``) and sliced."""
+    dim = 1 if axis_is_out else 0
+    width = geom.h_run // geom.tp * geom.head_dim
+    if geom.g_pad == geom.group and w.shape[dim] == width:
+        return w
+    w = pad_group_dim(_model_whole(w, dim, geom.n_heads * geom.head_dim),
+                      geom, axis_is_out)
+    if geom.tp == 1:
+        return w
+    return w.narrow(dim, _current().coordinate(("model",)) * width, width)
 
 
 def promoted_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -63,25 +108,33 @@ def cross_kv(cfg: ModelConfig, p: dict, ctx: torch.Tensor
 
 
 def _project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor,
-                 pos: torch.Tensor, kv_x: torch.Tensor | None = None
+                 geom: HeadGeom, kv_x: torch.Tensor | None = None
                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Projections: q [B,Sq,H,hd] from ``x``, k and v [B,Sk,KV,hd] from
-    ``kv_x`` (``x`` itself for self-attention), with the optional per-head
-    q/k norm.  RoPE at positions ``pos`` [Sq] turns q, and k only in
-    self-attention: cross-attention keys carry no position."""
-    geom = head_geom(cfg)
-    hd = geom.head_dim
-    b, s, _ = x.shape
-    q = (x @ p["wq"]).reshape(b, s, geom.h_run, hd)
+    """Projections: q [B,S,h_run/tp,hd] (this rank's run heads) from ``x``,
+    k and v [B,Sk,KV,hd] whole from ``kv_x`` (``x`` itself for
+    self-attention), with the optional per-head q/k norm.  Self-attention
+    fuses the sequence gather with all three projections; RoPE at
+    positions ``0..S-1`` turns q, and k only in self-attention:
+    cross-attention keys carry no position."""
+    hd, kv = geom.head_dim, geom.n_kv
+    wq = _run_heads(p["wq"], geom, axis_is_out=True)
     if kv_x is None:
-        k = (x @ p["wk"]).reshape(b, s, geom.n_kv, hd)
-        v = (x @ p["wv"]).reshape(b, s, geom.n_kv, hd)
+        q, k, v = sp_col_projects(
+            x, (wq, _model_whole(p["wk"], 1, kv * hd),
+                _model_whole(p["wv"], 1, kv * hd)), ("act_heads", None, None))
     else:
+        (q,) = sp_col_projects(x, (wq,), ("act_heads",))
         k, v = cross_kv(cfg, p, kv_x)
+    b, s = q.shape[0], q.shape[1]
+    q = q.reshape(b, s, -1, hd)
+    if kv_x is None:
+        k = k.reshape(b, s, kv, hd)
+        v = v.reshape(b, s, kv, hd)
     if cfg.qk_norm:
         q = rmsnorm(p["q_scale"], q, cfg.norm_eps)
         k = rmsnorm(p["k_scale"], k, cfg.norm_eps)
     if cfg.rope_theta > 0:
+        pos = torch.arange(s, device=x.device)
         q = rope(q, pos, cfg.rope_theta)
         if kv_x is None:
             k = rope(k, pos, cfg.rope_theta)
@@ -108,26 +161,27 @@ def full_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     """Attention over whole sequences from position 0: x [B,S,D] -> y
     [B,S,D]; with ``return_kv`` also ``(k, v)`` [B,Sk,KV,hd] before the kv
     repeat (post-RoPE for self-attention), for a prefill's cache.
+    Sequence-parallel, x and y are this rank's ``[B, S/tp, D]``.
 
     ``kv_x`` [B,Sk,D] makes it cross-attention: q from ``x`` at positions
     ``0..S-1``, k and v from ``kv_x`` unroped.  ``causal`` False attends
     every key (the encoder, cross-attention).
 
-    kv is repeated to the q-head count and every head runs as one row of a
-    ``[B·H, S, hd]`` problem.  Where the reference would take its flash
-    kernel (self-attention with ``S % min(128, S) == 0``; pos0 = 0 and
-    tp = 1 always hold here), the call goes to ``kops.flash_attention``
-    with ``causal`` as given.  Other calls take ``_attend``, split into
-    query chunks of ``chunk`` rows when S is a larger multiple of it, each
-    chunk recomputed in the backward (the reference's remat of its scan
-    body)."""
-    geom = head_geom(cfg)
-    hd, h = geom.head_dim, geom.h_run
-    b, s, _ = x.shape
-    pos = torch.arange(s, device=x.device)
-    q, k, v = _project_qkv(cfg, p, x, pos, kv_x)
-    k_r = k.repeat_interleave(geom.g_pad, dim=2)
-    v_r = v.repeat_interleave(geom.g_pad, dim=2)
+    kv is repeated to the padded q-head count, this rank's heads are kept,
+    and every head runs as one row of a ``[B·h, S, hd]`` problem.  Where
+    the reference would take its flash kernel (self-attention with
+    ``S % min(128, S) == 0``; pos0 = 0 always holds here), the call goes
+    to ``kops.flash_attention`` with ``causal`` as given, at any tp.  Other
+    calls take ``_attend``, split into query chunks of ``chunk`` rows when
+    S is a larger multiple of it, each chunk recomputed in the backward
+    (the reference's remat of its scan body)."""
+    geom = head_geom(cfg, tp_size())
+    hd = geom.head_dim
+    q, k, v = _project_qkv(cfg, p, x, geom, kv_x)
+    b, s, h = q.shape[0], q.shape[1], q.shape[2]
+    first = (_current().coordinate(("model",)) * h if geom.tp > 1 else 0)
+    k_r = k.repeat_interleave(geom.g_pad, dim=2)[:, :, first:first + h]
+    v_r = v.repeat_interleave(geom.g_pad, dim=2)[:, :, first:first + h]
 
     if kv_x is None and s % min(128, s) == 0:
         def heads_first(t):
@@ -136,6 +190,7 @@ def full_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
                                    heads_first(v_r), causal=causal)
         out = out.reshape(b, h, s, hd).transpose(1, 2)
     else:
+        pos = torch.arange(s, device=x.device)
         k_pos = torch.arange(k.shape[1], device=x.device)
 
         def block(q_blk: torch.Tensor, q_pos: torch.Tensor) -> torch.Tensor:
@@ -149,7 +204,8 @@ def full_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
                              for i in range(0, s, chunk)], dim=1)
         else:
             out = block(q, pos)
-    y = out.reshape(b, s, h * hd) @ p["wo"]
+    y = rs_project(out.reshape(b, s, h * hd),
+                   _run_heads(p["wo"], geom, axis_is_out=False), "act_heads")
     return (y, (k, v)) if return_kv else y
 
 

@@ -43,7 +43,7 @@ from repro_torch.models.attention import (chunk_decode_attention,
 from repro_torch.models.layers import (embed_tokens, gelu_mlp, head_geom,
                                        logits_from, rmsnorm,
                                        sinusoidal_positions, swiglu)
-from repro_torch.models.moe import moe_ffn
+from repro_torch.models.moe import moe_local
 from repro_torch.models.ssm import conv_channels, mamba_block, mamba_decode
 from repro_torch.models.stack import cross_block, encoder, gated
 
@@ -61,7 +61,7 @@ def _ffn(cfg: ModelConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
     """A dense or moe layer's FFN on its normed input (the moe aux, which
     serving discards, is not computed)."""
     if cfg.family == "moe":
-        return moe_ffn(cfg, p["moe"], h, with_aux=False)[0]
+        return moe_local(cfg, p["moe"], h, with_aux=False)[0]
     return swiglu(p["mlp"], h)
 
 

@@ -1,10 +1,9 @@
-"""Mixture-of-Experts FFN: top-k routing and capacity-bounded, sort-based
-dispatch, at tensor-parallel width 1.
+"""Mixture-of-Experts FFN: top-k routing, capacity-bounded sort-based
+dispatch, and expert parallelism over the ``model`` axis.
 
-Ports ``repro.models.moe``: ``moe_specs``, ``_capacity`` and the tp=1 body
-of ``_moe_local`` (the two ``all_to_all`` transports of expert parallelism
-wait for the multi-GPU slice), as a function on tensors.  All ``B*S`` rows
-of a call are routed together under one capacity, ``int(n * k * cf / E)``
+Ports ``repro.models.moe``: ``moe_specs``, ``_capacity``, ``_moe_local``
+(here ``moe_local``) and ``moe_ffn``, as functions on tensors.  All rows of
+a call are routed together under one capacity, ``int(n * k * cf / E)``
 slots an expert: the rows are sorted by expert (stably, so earlier rows
 win slots), a row past its expert's capacity is dropped from that expert,
 and the kept rows are copied into ``[E, cap, D]`` slots.  So every row of a
@@ -12,15 +11,26 @@ call, the dead rows of a serving chunk included, can take a slot from
 another; the paged kernel computes those rows as the plain version does
 (``kernels.ops.paged_attention(..., all_rows=True)``) for that reason.
 
-The expert products ``ecd,edf->ecf`` are ``torch.bmm`` over all experts,
-empty slots included, as in the reference (which computes them outside any
-Pallas kernel).  Rounding points follow the reference: the router in fp32,
-``top_w`` cast to ``x.dtype``, each token's weighted expert outputs summed
-in ``x.dtype`` from zero in the reference's scatter order.
+Under a ``model`` axis of ``tp`` ranks (``moe_ffn`` in the training step)
+each rank routes its own shard of tokens, ``[B/dp, S/tp]``, with the
+capacity and the load-balancing aux of that shard, as the reference's
+``shard_map`` body does; the first ``all_to_all`` carries each expert's
+slots to the rank that owns it (``E/tp`` experts a rank) and the second
+brings the outputs back, each the other's transpose.  With no ``model``
+axis the reference routes the whole batch at once under GSPMD, so data
+ranks gather their tokens, route them all and keep their own rows.
+
+The expert products ``ecd,edf->ecf`` are ``torch.bmm`` over all of a
+rank's experts, empty slots included, as in the reference (which computes
+them outside any Pallas kernel).  Rounding points follow the reference:
+the router in fp32, ``top_w`` cast to ``x.dtype``, each token's weighted
+expert outputs summed in ``x.dtype`` from zero in the reference's scatter
+order.
 
 Under ``torch.profiler`` the three stages run in the spans ``moe_route``
-(router, top-k, aux and dispatch), ``moe_experts`` (the expert products)
-and ``moe_combine``; with no profiler running no span is opened.
+(router, top-k, aux and dispatch), ``moe_experts`` (the expert products,
+and the exchanges around them) and ``moe_combine``; with no profiler
+running no span is opened.
 """
 from __future__ import annotations
 
@@ -31,6 +41,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import params as P
 from repro_torch.models.layers import silu
+from repro_torch.parallel import comm
+from repro_torch.parallel.ctx import _current
 
 
 def moe_specs(cfg: ModelConfig, layers: int | None) -> dict:
@@ -73,18 +85,25 @@ def _ieee_fp32():
 
 
 def moe_local(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
-              with_aux: bool = True
+              with_aux: bool = True, a2a_group=None
               ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """x [B, S, D] -> (y [B, S, D], aux [B, S] fp32, or None when
-    ``with_aux`` is off: the decode steps discard it)."""
+    ``with_aux`` is off: the decode steps discard it).  With
+    ``a2a_group`` (the ``model`` ranks, ``tp`` of them) the expert
+    weights are this rank's ``E/tp`` experts and the slots travel to their
+    owners and back."""
     b, s, d = x.shape
     n = b * s
     with _span("moe_route"):
         disp, aux, dest, order, top_w = _route(cfg, p, x.reshape(n, d), b, s,
                                                with_aux)
     with _span("moe_experts"):
+        if a2a_group is not None:
+            disp = _to_owners(disp, a2a_group.size(), a2a_group)
         h = silu(torch.bmm(disp, p["gate"])) * torch.bmm(disp, p["up"])
         y_e = torch.bmm(h, p["down"])                          # [E, cap, D]
+        if a2a_group is not None:
+            y_e = _from_owners(y_e, a2a_group.size(), a2a_group)
     with _span("moe_combine"):
         y = _combine(y_e, dest, order, top_w, n, cfg.top_k)
     return y.reshape(b, s, d), aux
@@ -154,6 +173,40 @@ def _combine(y_e: torch.Tensor, dest: torch.Tensor, order: torch.Tensor,
     return y
 
 
-# At tp=1 the reference's ``moe_ffn`` is its local body: no expert
-# parallelism, no all_to_all.
-moe_ffn = moe_local
+def _to_owners(disp: torch.Tensor, tp: int, group) -> torch.Tensor:
+    """[E, cap, D] -> [E/tp, tp·cap, D]: expert block ``j`` to rank ``j``,
+    the blocks received concatenated along the slots in rank order (the
+    reference's ``all_to_all(split_axis=0, concat_axis=1, tiled=True)``)."""
+    e, cap, d = disp.shape
+    got = comm.all_to_all(disp, group)               # [tp · E/tp, cap, D]
+    return got.reshape(tp, e // tp, cap, d).transpose(0, 1).reshape(
+        e // tp, tp * cap, d)
+
+
+def _from_owners(y: torch.Tensor, tp: int, group) -> torch.Tensor:
+    """[E/tp, tp·cap, D] -> [E, cap, D]: each rank's slots back to it, in
+    global expert order (``split_axis=1, concat_axis=0``)."""
+    el, slots, d = y.shape
+    y = y.reshape(el, tp, slots // tp, d).transpose(0, 1)
+    return comm.all_to_all(y.reshape(tp * el, slots // tp, d), group)
+
+
+def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel MoE FFN.  x: [B,S,D] (this rank's tokens) -> (y
+    [B,S,D], aux [B,S]): ``moe_local`` with no mesh bound; each rank's
+    shard routed alone with its experts exchanged over ``model`` when the
+    model axis is wider than one; the whole batch gathered over the data
+    axes and routed at once when it is not."""
+    ctx = _current()
+    if ctx is None or ctx.mesh.size() == 1:
+        return moe_local(cfg, p, x)
+    tp = ctx.axis_sizes.get("model", 1)
+    if tp > 1:
+        # the reference's shard_map body, run on the rank's shards as held
+        return moe_local(cfg, p, x, a2a_group=ctx.group(("model",)))
+    dp = [a for a in ctx.mesh.mesh_dim_names if a != "model"]
+    b = x.shape[0]
+    y, aux = moe_local(cfg, p, comm.all_gather(x, 0, ctx.group(dp)))
+    first = ctx.coordinate(dp) * b
+    return y[first:first + b], aux[first:first + b]

@@ -17,7 +17,12 @@ From the declaration:
     from ``jax.random``'s: use ``from_jax`` where bits must agree);
   * ``from_jax(tree)`` is the weight bridge: the reference's numpy'd
     pytree becomes the port's tensors, bit-exact;
-  * ``count(specs)`` is the analytic parameter count.
+  * ``count(specs)`` is the analytic parameter count;
+  * ``partition(specs)`` is each leaf's resolved spec under the bound
+    rule set (``launch.bind.shard`` cuts a full tree by it to this rank's
+    slices: a full tree from ``from_jax``, so the reference's weights
+    cross over sharded), and ``gathered`` puts one layer's slices in the
+    layout the training step computes in.
 """
 from __future__ import annotations
 
@@ -28,6 +33,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.parallel import comm
+from repro_torch.parallel.ctx import _axes, _current, resolve
 
 
 @dataclass(frozen=True)
@@ -57,8 +64,66 @@ def leaves(tree: Any) -> list[Any]:
     return [tree]
 
 
+def tree_map2(fn: Callable[[Any, Any], Any], tree: Any, other: Any) -> Any:
+    """``fn(leaf, other_leaf)`` over two trees of one structure (nested
+    dicts and NamedTuples, such as a train state and its shardings)."""
+    if isinstance(tree, dict):
+        return {k: tree_map2(fn, v, other[k]) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map2(fn, v, o) for v, o in zip(tree, other)))
+    return fn(tree, other)
+
+
 def count(specs: Any) -> int:
     return sum(int(np.prod(s.shape)) for s in leaves(specs))
+
+
+# ---- sharding --------------------------------------------------------------
+
+
+def partition(specs: Any) -> Any:
+    """Each leaf's resolved spec under the bound rule set (all ``None``
+    with none bound)."""
+    return tree_map(lambda s: resolve(s.axes, s.shape), specs)
+
+
+def gathered(tree: Any, specs: Any, *, stacked: bool = False) -> Any:
+    """Slices in the layout the training step computes in: each dimension
+    sharded over axes other than ``model`` (the FSDP axes) all-gathered,
+    the ``model``-sharded dimensions kept; the backward reduce-scatters
+    the gradient, and sums it over the axes the leaf is replicated on,
+    which split the step's computation too (the batch over the data axes,
+    the sequence and the heads over ``model``).  ``stacked``: ``tree`` is
+    one layer of ``[L, ...]``-stacked ``specs``.  The identity with no
+    context bound."""
+    ctx = _current()
+    if ctx is None:
+        return tree
+
+    def one(t: torch.Tensor, spec: ParamSpec) -> torch.Tensor:
+        parts = resolve(spec.axes, spec.shape)[1 if stacked else 0:]
+        used = [a for part in parts for a in _axes(part)]
+        t = comm.sum_grads(t, ctx.group([a for a in ctx.mesh.mesh_dim_names
+                                         if a not in used]))
+        for dim, part in enumerate(parts):
+            fsdp = [a for a in _axes(part) if a != "model"]
+            if fsdp and "model" in _axes(part):
+                raise ValueError(f"{spec.axes}: a dimension over both "
+                                 f"model and {fsdp} has no compute layout")
+            t = comm.all_gather(t, dim, ctx.group(fsdp))
+        return t
+    return tree_map2(one, tree, specs)
+
+
+def shard_groups(specs: Any) -> Any:
+    """Each leaf's process group over the axes its tensor is sharded on
+    (``None`` where it is whole on every rank, or no context is bound)."""
+    ctx = _current()
+    if ctx is None:
+        return tree_map(lambda s: None, specs)
+    return tree_map(lambda s: ctx.group(
+        [a for part in resolve(s.axes, s.shape) for a in _axes(part)]),
+        specs)
 
 
 # ---- initialisation --------------------------------------------------------

@@ -25,6 +25,14 @@ scans over the stacked ``[L, ...]`` layer parameters; here a Python loop
 walks them, each leaf split once with ``unbind`` so the backward stacks
 the layers' gradients in one step.  Remat wraps each layer, each call of
 the shared block and each cross block, as the reference's scans do.
+
+Under a bound mesh (the training step's, dense and moe) each rank runs its
+shards: ``P.gathered`` all-gathers each layer's FSDP dimensions inside
+the layer's remat (so the backward gathers them again), the residual
+stream between blocks is this rank's ``[B/dp, S/tp, D]`` (``_res``: the
+reference's ``act_res`` sequence sharding, checked by ``constrain``), and
+``moe_aux`` is the mean over every rank's shard.  The other families
+raise there: their blocks have no sharded form in the port yet.
 """
 from __future__ import annotations
 
@@ -40,25 +48,31 @@ from repro_torch.models.layers import (embed_tokens, gelu_mlp, logits_from,
                                        rmsnorm, sinusoidal_positions, swiglu)
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.ssm import mamba_block
+from repro_torch.parallel import comm
+from repro_torch.parallel.ctx import (_axes, _current, carry, constrain,
+                                      resolve)
+
+# the slice of the port that will shard each other family's blocks
+_CP = "ssm.mamba_block_cp (the reference's context-parallel Mamba2 block)"
+_CROSS = "vlm and encdec under a mesh"
+UNSHARDED = {"ssm": _CP, "hybrid": _CP, "vlm": _CROSS, "encdec": _CROSS}
 
 
 def _remat(fn: Callable, mode: str) -> Callable:
     """``full`` recomputes each layer in the backward from its input (the
-    reference's ``nothing_saveable``).  ``dots`` maps to ``none``: the
+    reference's ``nothing_saveable``), under the sharding context of the
+    forward (``carry``).  ``dots`` maps to ``none``: the
     reference's policy saves every matmul output and recomputes only the
     elementwise ops, which PyTorch's checkpoint cannot select; the values
     are the same either way, only the memory differs."""
     if mode in ("none", "dots"):
         return fn
     if mode == "full":
-        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+        return lambda *args: checkpoint(carry(fn), *args, use_reentrant=False)
     raise ValueError(f"unknown remat mode {mode}")
 
 
 def _dense_block(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    # The reference's ``_res`` (a sharding constraint and a pin of the
-    # cotangent to bf16) is the identity here: at tp=1 nothing is sharded,
-    # and a gradient in PyTorch already takes its tensor's dtype.
     h = x + full_attention(cfg, p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps))
     return h + swiglu(p["mlp"], rmsnorm(p["ln2"], h, cfg.norm_eps))
 
@@ -144,25 +158,89 @@ def _encdec_forward(cfg: ModelConfig, params: dict, batch: dict,
     return logits_from(params["embed"], cfg, x), {}
 
 
+def check_mesh(cfg: ModelConfig, rows: int, seq: int) -> None:
+    """Raise ``ValueError`` unless the bound mesh can run ``cfg``'s step on
+    ``rows`` local batch rows of ``seq`` tokens as the reference shards
+    it: dense and moe only; a ``model`` axis only with the residual stream
+    sequence-sharded (``act_res``) and the sequence, ``d_ff``, the vocab
+    and the experts split evenly over it; the batch split over the data
+    axes.  Where the reference would replicate an uneven dimension, the
+    port refuses rather than replicate quietly."""
+    ctx = _current()
+    if ctx is None or ctx.mesh.size() == 1:
+        return
+    if cfg.family not in ("dense", "moe"):
+        raise ValueError(
+            f"{cfg.name} ({cfg.family}) has no sharded step in the port: a "
+            f"mesh of {tuple(ctx.mesh.shape)} waits for the slice that "
+            f"ports {UNSHARDED[cfg.family]}")
+    tp = ctx.axis_sizes.get("model", 1)
+    dp = tuple(a for a in ctx.mesh.mesh_dim_names if a != "model")
+    batch = rows * ctx.size(dp)
+    want = dp if len(dp) > 1 else dp[0] if dp else None
+    if ctx.size(dp) > 1 and resolve(("act_batch", "act_seq"),
+                                    (batch, seq))[0] != want:
+        raise ValueError(f"a batch of {batch} does not split over {dp}")
+    if tp == 1:
+        return
+    if ctx.rules.get("act_res") != "model" or seq % tp:
+        raise ValueError(
+            f"a model axis of {tp} shards the step only with the residual "
+            f"stream sequence-sharded over it (rules with act_res=model, "
+            f"a sequence that splits): seq {seq}")
+    for spec in P.leaves(P.param_specs(cfg)):
+        even = resolve(spec.axes, spec.shape)
+        for name, part, kept in zip(spec.axes, resolve(spec.axes), even):
+            if (name in ("mlp", "vocab", "experts")
+                    and "model" in _axes(part) and kept is None):
+                raise ValueError(f"{name} of {spec.shape} does not split "
+                                 f"over a model axis of {tp}")
+
+
 def forward(cfg: ModelConfig, params: dict, batch: dict, *,
             remat: str = "none") -> tuple[torch.Tensor, dict]:
-    """Full-sequence forward -> (logits [B,S,Vpad] fp32, metrics)."""
+    """Full-sequence forward -> (logits [B,S,Vpad] fp32, metrics); under a
+    bound mesh, this rank's rows (and, sequence-parallel, its vocab
+    columns)."""
     fam = cfg.family
+    if fam not in ("dense", "moe", "ssm", "hybrid", "vlm", "encdec"):
+        raise ValueError(f"unknown family {fam!r} ({cfg.name})")
+    rows, seq = batch["tokens"].shape
+    check_mesh(cfg, rows, seq)
     if fam == "encdec":
         return _encdec_forward(cfg, params, batch, remat)
-    if fam not in ("dense", "moe", "ssm", "hybrid", "vlm"):
-        raise ValueError(f"unknown family {fam!r} ({cfg.name})")
+    ctx = _current()
+    specs = P.param_specs(cfg) if ctx is not None else {}
+    dp = ([a for a in ctx.mesh.mesh_dim_names if a != "model"]
+          if ctx is not None else [])
+    res_shape = (rows * (ctx.size(dp) if ctx is not None else 1), seq,
+                 cfg.d_model)
+
+    def res(x: torch.Tensor) -> torch.Tensor:
+        # the reference also pins the cotangent to bf16 here; autograd
+        # keeps every gradient in its tensor's dtype already, so no pin
+        return constrain(x, ("act_batch", "act_res", None), res_shape)
+
+    def layer_tree(p: dict) -> dict:
+        return P.gathered(p, specs.get("layers"), stacked=True)
+
     metrics: dict[str, torch.Tensor] = {}
-    x = embed_tokens(params["embed"], batch["tokens"])
-    layer = _unbind_layers(params["layers"])
+    embed = P.gathered(params["embed"], specs.get("embed"))
+    x = res(embed_tokens(embed, batch["tokens"]))
+    per_layer = _unbind_layers(params["layers"])
 
     if fam == "moe":
-        body = _remat(lambda x, p: _moe_block(cfg, p, x), remat)
+        body = _remat(lambda x, p: _moe_block(cfg, layer_tree(p), x), remat)
         auxes = []
         for i in range(cfg.n_layers):
-            x, aux = body(x, layer(i))
+            x, aux = body(x, per_layer(i))
+            x = res(x)
             auxes.append(aux)
-        metrics["moe_aux"] = torch.stack(auxes).mean()
+        aux = torch.stack(auxes).mean()
+        if ctx is not None:
+            aux = comm.all_reduce(aux, ctx.group(ctx.mesh.mesh_dim_names)
+                                  ) / ctx.mesh.size()
+        metrics["moe_aux"] = aux
     elif fam == "vlm":
         img = batch["image_embed"]
         body = _remat(lambda x, p: _dense_block(cfg, p, x), remat)
@@ -172,12 +250,12 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
         for g in range(cfg.n_layers // per):
             x = cross(x, cross_layer(g))
             for j in range(per):
-                x = body(x, layer(g * per + j))
+                x = body(x, per_layer(g * per + j))
     elif fam != "hybrid":
         block = _dense_block if fam == "dense" else _ssm_block
-        body = _remat(lambda x, p: block(cfg, p, x), remat)
+        body = _remat(lambda x, p: block(cfg, layer_tree(p), x), remat)
         for i in range(cfg.n_layers):
-            x = body(x, layer(i))
+            x = res(body(x, per_layer(i)))
     else:
         body = _remat(lambda x, p: _ssm_block(cfg, p, x), remat)
         groups = cfg.n_layers // cfg.attn_every
@@ -187,7 +265,8 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
         site_norms = params["site_norm"].unbind(0)
         for g in range(groups):
             for j in range(per):
-                x = body(x, layer(g * per + j))
+                x = body(x, per_layer(g * per + j))
             x = shared(x, site_norms[g])
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return logits_from(params["embed"], cfg, x), metrics
+    x = rmsnorm(P.gathered(params["final_norm"], specs.get("final_norm")),
+                x, cfg.norm_eps)
+    return logits_from(embed, cfg, x), metrics

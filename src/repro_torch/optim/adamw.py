@@ -1,10 +1,10 @@
 """AdamW with fp32 master weights, global-norm clipping and a warmup+cosine
 schedule.
 
-Port of ``repro.optim.adamw`` on one device.  ``OptState`` has the
-reference's fields.  The state costs 16 bytes per parameter beside the
-activations: the bf16 parameters and their bf16 gradients, and fp32
-master, m and v.  ``apply`` keeps the reference's arithmetic, op for op
+Port of ``repro.optim.adamw``, on one device or on each rank's shards.
+``OptState`` has the reference's fields.  The state costs 16 bytes per
+parameter beside the activations: the bf16 parameters and their bf16
+gradients, and fp32 master, m and v.  ``apply`` keeps the reference's arithmetic, op for op
 (the clip scale, the moment updates, the bias corrections ``c1`` and
 ``c2``, decoupled weight decay on the master weights, parameters cast from
 the master copy), but works tensor by tensor and **in place**: master, m,
@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.configs.base import TrainConfig
 from repro_torch.models.params import leaves, tree_map
+from repro_torch.parallel import comm
 
 SLICE_ELEMENTS = 1 << 26    # about 256 MB of fp32 a temporary
 
@@ -60,24 +61,46 @@ def schedule(cfg: TrainConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.learning_rate * warm * (0.1 + 0.9 * cos)
 
 
-def clip_by_global_norm(grads: Any, max_norm: float
+def clip_by_global_norm(grads: Any, max_norm: float, groups: Any = None
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(scale, global_norm)``: the factor every gradient is multiplied by
     in fp32, ``min(1, max_norm / (norm + 1e-9))``.  The reference returns
-    the scaled fp32 tree; here ``apply`` scales leaf by leaf."""
-    sq = sum(torch.sum(torch.square(g.float())) for g in leaves(grads))
+    the scaled fp32 tree; here ``apply`` scales leaf by leaf.
+
+    ``groups`` (sharded gradients): beside each leaf, the process group of
+    the axes it is sharded on (``models.params.shard_groups``).  The leaves'
+    sums of squares are added up by group and each sum is reduced over its
+    group only, so every element of the global tree counts once: a leaf is
+    the same on the ranks of the axes it is replicated on."""
+    if groups is None:
+        sq = sum(torch.sum(torch.square(g.float())) for g in leaves(grads))
+    else:
+        by_group: list[list] = []             # [group, sum], first seen
+        for g, group in zip(leaves(grads), leaves(groups)):
+            part = torch.sum(torch.square(g.float()))
+            for entry in by_group:
+                if entry[0] is group:
+                    entry[1] = entry[1] + part
+                    break
+            else:
+                by_group.append([group, part])
+        sq = sum(part if group is None else comm.sum_all(part, group)
+                 for group, part in by_group)
     gnorm = torch.sqrt(sq)
     return torch.clamp(max_norm / (gnorm + 1e-9), max=1.0), gnorm
 
 
 @torch.no_grad()
 @torch.profiler.record_function("adamw_update")
-def apply(cfg: TrainConfig, state: OptState, grads: Any, params: Any
+def apply(cfg: TrainConfig, state: OptState, grads: Any, params: Any,
+          groups: Any = None
           ) -> tuple[Any, OptState, dict[str, torch.Tensor]]:
     """One AdamW update, in place.  Returns (params, new state, metrics);
     the params and the state's master, m and v are the tensors passed in,
-    updated.  A profiler span, ``adamw_update``, holds its device time."""
-    scale, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    updated.  Sharded, each rank updates its slices (the state shares the
+    parameters' shards: ZeRO-3) and ``groups`` is ``clip_by_global_norm``'s.
+    A profiler span, ``adamw_update``, holds its device time."""
+    scale, gnorm = clip_by_global_norm(grads, cfg.grad_clip, groups)
     step = state.step + 1
     lr = schedule(cfg, step)
     b1, b2, eps, wd = cfg.beta1, cfg.beta2, cfg.eps, cfg.weight_decay

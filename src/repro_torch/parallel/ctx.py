@@ -11,21 +11,34 @@ portable-image property.
 dimension: ``None``, a mesh axis name, or a tuple of names.
 ``sharding_for`` turns it into the ``DTensor`` placements of the bound
 mesh (``Shard(dim)`` on each mesh axis a dimension takes, ``Replicate()``
-on the others), what ``torch.distributed.tensor.distribute_tensor`` takes
-where the reference takes a ``NamedSharding``.  The reference's
-``constrain`` and ``shard_map_compat`` are GSPMD annotations; the port has
-no such partitioner, and they wait for its tensor- and expert-parallel
-slice.
+on the others).
+
+The port has no partitioner: each rank holds its shards as plain tensors,
+and the model's collectives are explicit (``parallel.comm``).  So the
+reference's ``constrain`` (a GSPMD annotation) becomes a check that a local
+tensor has the shape its logical axes give it, never a reshard, and a
+``shard_map`` body of the reference is called on the shards as they are
+(no wrapper).  A dimension
+sharded over several axes (``embed`` over ``("pod", "data")``) is split
+row-major over them, as in the reference.  ``ShardCtx.group`` gives the
+process group of a set of axes, ``coordinate`` this rank's index along
+them, and ``shard`` and ``unshard`` move a tensor between its global and
+local forms.
 """
 from __future__ import annotations
 
 import contextlib
+import itertools
+import math
 import threading
-from typing import Sequence
+from typing import Callable, Sequence
 
+import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 from torch.distributed.tensor import Replicate, Shard
+
+from repro_torch.parallel.comm import gather_dim
 
 _state = threading.local()
 
@@ -34,6 +47,47 @@ Spec = tuple  # one entry a dimension: None, an axis name, or axis names
 
 def _current():
     return getattr(_state, "ctx", None)
+
+
+def _axes(part) -> tuple[str, ...]:
+    """A spec entry's mesh axes: ``()``, ``("model",)`` or
+    ``("pod", "data")``."""
+    if part is None:
+        return ()
+    return (part,) if isinstance(part, str) else tuple(part)
+
+
+def mesh_groups(mesh: DeviceMesh) -> dict:
+    """The process groups of ``mesh``'s axis sets, made once a mesh.
+
+    Keyed by a tuple of axes in mesh order, each of size above one: the
+    group of the ranks that differ from this one only along those axes
+    (the mesh's own group for one axis, the world for all of them).
+    ``dist.new_group`` is collective, so every rank makes the groups of
+    every set in one order here, when ``bind`` first sees the mesh."""
+    groups = getattr(mesh, "_repro_groups", None)
+    if groups is not None:
+        return groups
+    names = [a for a, n in zip(mesh.mesh_dim_names, mesh.shape) if n > 1]
+    groups = {}
+    for k in range(1, len(names) + 1):
+        for axes in itertools.combinations(names, k):
+            if k == 1:
+                groups[axes] = mesh.get_group(axes[0])
+            elif k == len(names):
+                groups[axes] = dist.group.WORLD
+            else:
+                dims = [mesh.mesh_dim_names.index(a) for a in axes]
+                rest = [i for i in range(mesh.ndim) if i not in dims]
+                size = math.prod(mesh.shape[i] for i in dims)
+                rows = mesh.mesh.permute(*rest, *dims).reshape(-1, size)
+                me = dist.get_rank()
+                for row in rows.tolist():
+                    g = dist.new_group(row)
+                    if me in row:
+                        groups[axes] = g
+    mesh._repro_groups = groups
+    return groups
 
 
 class ShardCtx:
@@ -82,15 +136,80 @@ class ShardCtx:
         return [Shard(dim_of[a]) if a in dim_of else Replicate()
                 for a in self.mesh.mesh_dim_names]
 
+    def size(self, axes: Sequence[str]) -> int:
+        return math.prod(self.axis_sizes.get(a, 1) for a in axes)
+
+    def group(self, axes: Sequence[str]):
+        """The process group over ``axes`` (those of size one dropped), or
+        ``None`` where that leaves this rank alone."""
+        key = tuple(a for a in self.mesh.mesh_dim_names
+                    if a in axes and self.axis_sizes[a] > 1)
+        return mesh_groups(self.mesh)[key] if key else None
+
+    def coordinate(self, axes: Sequence[str]) -> int:
+        """This rank's index along ``axes``, row-major in mesh order: its
+        rank in ``group(axes)``, and the shard of a dimension split over
+        ``axes`` that it holds."""
+        coord = dict(zip(self.mesh.mesh_dim_names,
+                         self.mesh.get_coordinate()))
+        index = 0
+        for a in self.mesh.mesh_dim_names:
+            if a in axes:
+                index = index * self.axis_sizes[a] + coord[a]
+        return index
+
+    def local_shape(self, shape: Sequence[int], spec: Spec
+                    ) -> tuple[int, ...]:
+        return tuple(n // self.size(_axes(part))
+                     for n, part in zip(shape, spec))
+
+    def shard(self, full: torch.Tensor, spec: Spec) -> torch.Tensor:
+        """This rank's shard of the global tensor ``full`` under ``spec``
+        (a copy)."""
+        for dim, part in enumerate(spec):
+            axes = _axes(part)
+            if axes:
+                n = full.shape[dim] // self.size(axes)
+                full = full.narrow(dim, self.coordinate(axes) * n, n)
+        return full.clone()
+
+    def unshard(self, local: torch.Tensor, spec: Spec) -> torch.Tensor:
+        """The global tensor of which ``local`` is this rank's shard under
+        ``spec`` (a copy): all-gathered over each sharded dimension's axes
+        (every rank of those groups calls it)."""
+        for dim, part in enumerate(spec):
+            group = self.group(_axes(part))
+            if group is not None:
+                local = gather_dim(local, dim, group)
+        return local.clone(memory_format=torch.contiguous_format)
+
 
 @contextlib.contextmanager
 def bind(mesh: DeviceMesh, rules: dict):
+    mesh_groups(mesh)
     prev = _current()
     _state.ctx = ShardCtx(mesh, rules)
     try:
         yield _state.ctx
     finally:
         _state.ctx = prev
+
+
+def carry(fn: Callable) -> Callable:
+    """``fn`` run under the binding that holds now, on whichever thread
+    calls it.  The binding is thread-local, and autograd runs a CUDA
+    backward, and with it a checkpointed layer's recompute, on a thread of
+    its own."""
+    ctx = _current()
+
+    def run(*args, **kwargs):
+        prev = _current()
+        _state.ctx = ctx
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _state.ctx = prev
+    return run
 
 
 def mesh_of(shape: Sequence[int], axes: Sequence[str],
@@ -130,3 +249,18 @@ def sharding_for(logical: Sequence[str | None],
     if ctx is None:
         return None
     return ctx.placements(ctx.resolve(logical, shape))
+
+
+def constrain(x: torch.Tensor, logical: Sequence[str | None],
+              shape: Sequence[int]) -> torch.Tensor:
+    """The reference's sharding annotation as a check: ``x`` must be this
+    rank's shard of a global tensor of ``shape`` under the bound rules
+    (``shape`` itself when none is bound).  Raises ``ValueError``
+    otherwise; never reshards."""
+    ctx = _current()
+    want = (tuple(shape) if ctx is None
+            else ctx.local_shape(shape, ctx.resolve(logical, shape)))
+    if tuple(x.shape) != want:
+        raise ValueError(f"a shard of {tuple(shape)} as {tuple(logical)} "
+                         f"has shape {want} here, not {tuple(x.shape)}")
+    return x

@@ -1,9 +1,16 @@
 """Train-step factory: loss → grads → AdamW, with optional gradient
 accumulation (microbatching) and int8 error-feedback gradient compression.
 
-Port of ``repro.train.step`` on one device.  ``make_train_step`` returns a
+Port of ``repro.train.step``.  ``make_train_step`` returns a
 ``(state, batch) -> (state, metrics)`` function, as the reference's; it
 updates the state in place (see ``optim.adamw.apply``) and returns it.
+Called inside ``parallel.bind`` over a mesh, it takes each rank's shards
+of the state and the batch (``launch.bind``): the model's collectives
+reduce every gradient over the axes that split its computation (a
+reduce-scatter over the axes its parameter is sharded on, a sum over the
+ones it is replicated on), the global norm counts each element once, and
+the optimizer updates the rank's slices, so ZeRO-3 follows as in the
+reference.  The loss and the metrics are the global ones on every rank.
 Metrics stay on the device: reading one (``float(metrics["loss"])``) is
 the caller's host sync.  ``train_state_from_jax`` is the state bridge: a
 reference ``TrainState`` as numpy becomes the port's, bit for bit.
@@ -16,7 +23,8 @@ import torch
 
 from repro_torch.configs.base import RunConfig
 from repro_torch.models.model import Model
-from repro_torch.models.params import from_jax, tree_map
+from repro_torch.models.params import from_jax, shard_groups, tree_map
+from repro_torch.parallel.ctx import _current
 from repro_torch.optim import adamw
 
 
@@ -77,12 +85,19 @@ def make_train_step(model: Model, run: RunConfig) -> Callable:
         return loss, metrics, grads
 
     def train_step(state: TrainState, batch: dict):
+        ctx = _current()
+        sharded = ctx is not None and ctx.mesh.size() > 1
+        if sharded and tc.grad_compress != "none":
+            raise ValueError("int8 gradient compression scales each tensor "
+                             "by its max, which a sharded step does not "
+                             "have on one rank")
         loss, metrics, grads = compute_grads(state.params, batch)
         if tc.grad_compress == "int8_ef":
             from repro_torch.optim.compress import compress_decompress
             grads = compress_decompress(grads)
+        groups = shard_groups(model.param_specs()) if sharded else None
         params, opt, opt_metrics = adamw.apply(tc, state.opt, grads,
-                                               state.params)
+                                               state.params, groups)
         metrics = dict(metrics)
         metrics.update(opt_metrics)
         metrics["loss"] = loss
