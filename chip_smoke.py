@@ -116,7 +116,8 @@ non-zero without printing a result:
                   steps of the default schedule: the SSD kernel launched
                   twice per layer per step (counts zeroed just before),
                   through its tensor-core design, one more step under
-                  ``torch.profiler`` with the device ms of the SSD
+                  ``torch.profiler`` (after a warm-up step in the same
+                  profile) with the device ms of the SSD
                   forward's kernels and of the ``ssd_scan_backward`` and
                   ``adamw_update`` spans.  Then the same 4 steps from the
                   same seed with the plain versions on the card: each loss
@@ -341,6 +342,21 @@ non-zero without printing a result:
                   slots exchanged by all-to-all, two a layer forward (six
                   in the attested step with the remat recompute and the
                   backward).
+43. cp_train    — the context-parallel Mamba2 block
+                  (``ssm.mamba_block_cp``): mamba2-2.7b at full width cut
+                  to 4 layers over (1, 1) (NCCL), (1, 2) and (1, 4) (gloo
+                  ranks sharing the card), zamba2-2.7b cut to one group (6
+                  layers: 5 Mamba2 and the shared block) over (1, 2), as
+                  tp_train runs them (seq 2048, batch 4, remat full, bf16,
+                  the ``train`` rules, 2 steps; the ranks of one world
+                  train both archs in turn, each against its one-process
+                  step).  Each rank scans its 2048 / tp tokens through the
+                  SSD kernel (steps x Mamba2 layers x 2 launches) and runs
+                  zamba2's shared attention on its heads through flash
+                  (steps x groups x 2).  The attested first step under a
+                  model axis shows the halo's collective-permute (send and
+                  recv) and the all-gathers, no all-to-all.  The same
+                  checks and figures as tp_train's.
 
 Every engine the serve, gather_serve, cluster, vlm_serve and encdec_serve
 phases build must leave ``torch.cuda.memory_allocated()`` where it found
@@ -354,8 +370,8 @@ the every-row timing, the flash row the vlm and encdec phases' launches
 by mode; the flash row also the train_cli, env_manifest and examples'
 launches, the paged row serve_lm's and the HH row ring_simulation's
 epoch launches and ring_ranks' launches by world size and rank; the flash
-row also tp_train's and moe_ep_train's by mesh and rank), the
-card's name
+row also tp_train's, moe_ep_train's and cp_train's (zamba2) by mesh and
+rank, the SSD row cp_train's by arch, mesh and rank), the card's name
 and power limit as ``nvidia-smi`` reports them, and last ``{"ok": true,
 "device": ...}``.
 """
@@ -1253,7 +1269,10 @@ def phase_train_parity(dev) -> None:
 
 
 def device_ms_by_kernel(prof) -> dict[str, float]:
-    """Device milliseconds by kernel name from a ``torch.profiler`` run."""
+    """Device milliseconds by kernel name from a ``torch.profiler`` run.
+    Fails if the run holds no device time, saying what it did hold: its
+    host events, the kernel launches among them, its device events and
+    the card's free memory."""
     by_kernel = {}
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", 0.0)
@@ -1261,7 +1280,16 @@ def device_ms_by_kernel(prof) -> dict[str, float]:
         if (us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA
                 and not getattr(ev, "is_user_annotation", False)):
             by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + us / 1e3
-    check(sum(by_kernel.values()) > 0, "the profiler saw no device time")
+    if sum(by_kernel.values()) <= 0:
+        events = prof.events()
+        cuda = torch.autograd.DeviceType.CUDA
+        launches = sum("LaunchKernel" in ev.name for ev in events
+                       if ev.device_type != cuda)
+        check(False, f"the profiler saw no device time: {len(events)} "
+              f"events, {launches} kernel launches on the host, "
+              f"{sum(ev.device_type == cuda for ev in events)} on the "
+              f"device; {torch.cuda.mem_get_info()[0] / 2**20:.0f} MiB "
+              f"free on the card")
     return by_kernel
 
 
@@ -1332,16 +1360,24 @@ def run_steps(step_fn, state, host_batches, dev, metrics_out=None):
     return state, losses, step_s
 
 
-def profiled_step(step_fn, state, host_batch, dev, spans=()):
+def profiled_step(step_fn, state, host_batch, dev, spans=(), warmup=False):
     """One more step under ``torch.profiler``: (state, device ms, device
     ms by kernel kind, the top kernels, device ms under each of
-    ``spans``)."""
-    from torch.profiler import ProfilerActivity, profile
+    ``spans``).  ``warmup``: one step before it on the same batch under
+    the profiler's warm-up (CUPTI's activity tracing on, its records
+    dropped), so the recorded step's window is not the first one CUPTI
+    opens for this profile."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     batch = {k: torch.as_tensor(a, device=dev)
              for k, a in host_batch.items()}
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=(schedule(wait=0, warmup=1, active=1)
+                           if warmup else None)) as prof:
+        if warmup:
+            state, _ = step_fn(state, batch)
+            torch.cuda.synchronize()
+            prof.step()                 # warm-up ends, recording starts
         state, _ = step_fn(state, batch)
         torch.cuda.synchronize()
     by_kernel = device_ms_by_kernel(prof)
@@ -2055,13 +2091,50 @@ def phase_stateful_serve(arch, dev) -> dict:
     return out
 
 
+PRESSURE_BALLAST_GB = (0, 18)   # 18: the phase's 70.4 GB peak in the script
+
+
+def profile_pressure() -> int:
+    """``python3 chip_smoke.py profile_pressure``, not part of the run: the
+    ssm_train step profiled alone, as the phase profiles it and after a
+    warm-up step, three times and twice, beside 0 and 18 GB of ballast
+    (the step's 52 GB peak raised to the phase's 70 GB, the card's free
+    memory to a few hundred MiB); a JSON line a profile with the card's
+    free memory before it and the device ms and kernels it saw."""
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kbuild.build_all(("ssd_scan",))
+    _, step_fn, batches, fresh = train_setup(
+        ALL_ARCHS[SSM_ARCH], SSM_TRAIN_SEQ, SSM_TRAIN_BATCH, 2, dev)
+    state, _, _ = run_steps(step_fn, fresh(), batches[:2], dev)
+    ballast = []
+    for gb in PRESSURE_BALLAST_GB:
+        while len(ballast) < gb // 2:
+            ballast.append(torch.empty(500_000_000, device=dev))  # 2 GB
+        for warmup in (False, False, False, True, True):
+            state, _, _ = run_steps(step_fn, state, batches[2:], dev)
+            free = torch.cuda.mem_get_info(dev)[0]
+            try:
+                state, device_ms, by_kind, _, _ = profiled_step(
+                    step_fn, state, batches[2], dev, warmup=warmup)
+                seen = {"device_ms": device_ms, "kinds": len(by_kind)}
+            except RuntimeError as e:     # the failure is the finding
+                seen = {"failed": str(e)}
+            emit({"phase": "profile_pressure", "ballast_gb": gb,
+                  "warmup": warmup, "free_mib": free / 2**20, **seen})
+    print(nvidia_smi(), flush=True)
+    return 0
+
+
 def phase_ssm_train(dev) -> dict:
     """Full-width mamba2-2.7b at full depth (64 layers, 2.83 B parameters;
     AdamW state 45 GB): seq 2048, batch 4, remat full, the first 4 steps
     of the default schedule on the port's ``DataPipeline``; launch counts
     zeroed just before and read just after; one more step under
-    ``torch.profiler``; then the same steps through the plain versions,
-    each loss within ``TRAJ_TOL`` of the kernel run's."""
+    ``torch.profiler``, after a warm-up step; then the same steps through
+    the plain versions, each loss within ``TRAJ_TOL`` of the kernel
+    run's."""
     cfg = ALL_ARCHS[SSM_ARCH]
     _, step_fn, batches, fresh = train_setup(
         cfg, SSM_TRAIN_SEQ, SSM_TRAIN_BATCH, SSM_TRAIN_STEPS, dev)
@@ -2088,7 +2161,7 @@ def phase_ssm_train(dev) -> dict:
     steady_ms = statistics.median(step_s[1:]) * 1e3
     state, device_ms, by_kind, top, spans = profiled_step(
         step_fn, state, batches[SSM_TRAIN_STEPS], dev,
-        ("ssd_scan_backward", "adamw_update"))
+        ("ssd_scan_backward", "adamw_update"), warmup=True)
     ssd_ms = by_kind.get("ssd_scan", 0.0)
     n_params = sum(t.numel() for t in P.leaves(state.params))
     # the same steps from the same seed with the plain versions on the
@@ -2815,7 +2888,7 @@ def phase_ring_ranks(dev) -> dict:
 
 # full width, depth cut so that four ranks' states and one process's fit
 # the card together with the phases' rank processes
-TP_LAYERS = {ARCH: 2, MOE_TRAIN_ARCH: 4}
+TP_LAYERS = {ARCH: 2, MOE_TRAIN_ARCH: 4, SSM_ARCH: 4, HYBRID_ARCH: 6}
 TP_MESHES = {ARCH: ((1, 1), (1, 2), (2, 2)), MOE_TRAIN_ARCH: ((1, 1), (1, 2))}
 TP_SEQ, TP_BATCH, TP_STEPS = 2048, 4, 2
 TP_TOL = 2e-2       # |loss - one process's|, tests/test_integration.py:56
@@ -2926,17 +2999,25 @@ def tp_steps(model, step_fn, state, host_batches, dev, mesh=None) -> dict:
             out["findings"] = [f["kind"] for f in report.findings]
             out["staged"] = sum(" over gloo" in f["detail"]
                                 for f in report.findings)
+            # gloo's send takes host memory: comm.shift copies each halo
+            # (and its cotangent) to the host before sending it
+            out["send_copies"] = sum("copy from the device to the host"
+                                     in f["detail"] for f in report.findings)
+            out["sends"] = sum(op.name.startswith("c10d::send")
+                               for op in report.ops)
     out["launches"] = dict(ops.LAUNCHES)
     out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     return out
 
 
-def tp_rank(backend: str, out: str, arch: str, dims: str) -> int:
-    """One rank of tp_train or moe_ep_train, in a process of its own: wire
-    up from the Slurm variables, train ``arch`` (full width, TP_LAYERS
-    deep) for TP_STEPS steps on its shards of a ``dims`` mesh under the
-    ``train`` rules; the one-rank world first takes the same steps with
-    no mesh bound (the one-process step).  Saves to ``out``/rank<r>.pt."""
+def tp_rank(backend: str, out: str, archs: str, dims: str) -> int:
+    """One rank of a sharded training phase (tp_train, moe_ep_train,
+    cp_train), in a process of its own: wire up from the Slurm variables,
+    then for each of the comma-separated ``archs`` (full width, TP_LAYERS
+    deep) train TP_STEPS steps on its shards of a ``dims`` mesh under the
+    ``train`` rules; the one-rank world first takes the same steps with no
+    mesh bound (the one-process step).  Saves to ``out``/rank<r>.pt, a
+    result by arch."""
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2946,49 +3027,13 @@ def tp_rank(backend: str, out: str, arch: str, dims: str) -> int:
             wireup, coordinator=f"localhost:{os.environ['REPRO_COORD_PORT']}")
     init_distributed(wireup, dev, backend=backend,
                      timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
-    r, world = wireup.process_id, wireup.num_processes
+    r = wireup.process_id
     shape = tuple(int(n) for n in dims.split("x"))
-    cfg = dataclasses.replace(ALL_ARCHS[arch], n_layers=TP_LAYERS[arch])
-    model, step_fn, batches, _ = train_setup(cfg, TP_SEQ, TP_BATCH,
-                                             TP_STEPS - 1, dev)
     res = {"backend": torch.distributed.get_backend(), "mesh": shape}
-    reference = Path(out).parent / "one_process_step1.pt"
     try:
-        params = model.init_params(
-            torch.Generator(device=dev).manual_seed(SEED), dev)
-        if world == 1:
-            one = P.tree_map(torch.clone, params)
-            grads, _ = tp_grads(model, one, batches[0], dev)
-            res["one_process"] = tp_steps(
-                model, step_fn, TrainState(one, adamw.init(one)), batches,
-                dev)
-            update = named_leaves(res["one_process"].pop("update"))
-            res["one_process"]["update_norm"] = sum(
-                float(torch.sum(torch.square(t))) for t in update.values()
-            ) ** 0.5
-            torch.save({"grads": named_leaves(grads), "update": update},
-                       reference)
-            del one, grads, update
+        for arch in archs.split(","):
+            res[arch] = tp_rank_arch(arch, Path(out), shape, dev)
             torch.cuda.empty_cache()
-        mesh = mesh_of(shape, ("data", "model"), "cuda")
-        with bind(mesh, RULESETS["train"]) as ctx:
-            local = launch_bind.shard(
-                params, launch_bind.state_shardings(model, mesh).params)
-            del params
-            grads, clip_norm = tp_grads(model, local, batches[0], dev, mesh)
-            torch.cuda.empty_cache()
-            sharded = tp_steps(
-                model, step_fn, TrainState(local, adamw.init(local)),
-                batches, dev, mesh)
-            want = torch.load(reference, mmap=True) if r == 0 else None
-            update = sharded.pop("update")
-            sharded["grads"] = tp_compare(ctx, model, grads,
-                                          want and want["grads"], dev)
-            sharded["grads"]["clip_norm"] = clip_norm
-            sharded["update"] = tp_compare(ctx, model, update,
-                                           want and want["update"], dev)
-            res["sharded"] = sharded
-            del grads, update, want
         torch.distributed.barrier()
     finally:
         torch.distributed.destroy_process_group()
@@ -2996,102 +3041,207 @@ def tp_rank(backend: str, out: str, arch: str, dims: str) -> int:
     return 0
 
 
-def phase_tp_train(arch: str, phase: str) -> dict:
-    """``arch`` at full width, TP_LAYERS deep, seq 2048, batch 4, remat
-    full, bf16, the ``train`` rules, over each of TP_MESHES: one NCCL rank
-    (1, 1), then gloo ranks sharing the card.  Every rank's losses within
-    TP_TOL of the one-process step's, the flash kernel launched on every
-    self-attention call of every rank (steps x layers x 2: the forward and
-    the remat recompute), the attested first step's collectives (dense: no
-    all-to-all; moe: six a layer, two forward, two recomputed, two
-    backward).  Returns the flash launches by mesh and rank."""
+def tp_rank_arch(arch: str, out: Path, shape: tuple, dev) -> dict:
+    """``tp_rank``'s run of one arch on this rank."""
+    r, world = torch.distributed.get_rank(), torch.distributed.get_world_size()
     cfg = dataclasses.replace(ALL_ARCHS[arch], n_layers=TP_LAYERS[arch])
-    flash_each = TP_STEPS * cfg.n_layers * 2
-    launches = {}
+    model, step_fn, batches, _ = train_setup(cfg, TP_SEQ, TP_BATCH,
+                                             TP_STEPS - 1, dev)
+    t0 = time.perf_counter()
+    res = {}
+    reference = out.parent / f"one_process_step1_{arch}.pt"
+    params = model.init_params(
+        torch.Generator(device=dev).manual_seed(SEED), dev)
+    if world == 1:
+        one = P.tree_map(torch.clone, params)
+        grads, _ = tp_grads(model, one, batches[0], dev)
+        res["one_process"] = tp_steps(
+            model, step_fn, TrainState(one, adamw.init(one)), batches, dev)
+        update = named_leaves(res["one_process"].pop("update"))
+        res["one_process"]["update_norm"] = sum(
+            float(torch.sum(torch.square(t))) for t in update.values()
+        ) ** 0.5
+        torch.save({"grads": named_leaves(grads), "update": update},
+                   reference)
+        del one, grads, update
+        torch.cuda.empty_cache()
+    mesh = mesh_of(shape, ("data", "model"), "cuda")
+    with bind(mesh, RULESETS["train"]) as ctx:
+        local = launch_bind.shard(
+            params, launch_bind.state_shardings(model, mesh).params)
+        del params
+        grads, clip_norm = tp_grads(model, local, batches[0], dev, mesh)
+        torch.cuda.empty_cache()
+        sharded = tp_steps(
+            model, step_fn, TrainState(local, adamw.init(local)),
+            batches, dev, mesh)
+        want = torch.load(reference, mmap=True) if r == 0 else None
+        update = sharded.pop("update")
+        sharded["grads"] = tp_compare(ctx, model, grads,
+                                      want and want["grads"], dev)
+        sharded["grads"]["clip_norm"] = clip_norm
+        sharded["update"] = tp_compare(ctx, model, update,
+                                       want and want["update"], dev)
+        res["sharded"] = sharded
+        del grads, update, want
+    res["sharded"]["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def expected_launches(cfg) -> dict[str, int]:
+    """Each kernel's launches in TP_STEPS steps of ``cfg`` under remat
+    full: the forward and the recompute of every self-attention call
+    (flash) and every Mamba2 layer (the SSD scan)."""
+    mamba = {"ssm": cfg.n_layers,
+             "hybrid": cfg.n_layers // cfg.attn_every * (cfg.attn_every - 1)
+             }.get(cfg.family, 0)
+    attention = {"dense": cfg.n_layers, "moe": cfg.n_layers,
+                 "hybrid": cfg.n_layers // cfg.attn_every}.get(cfg.family, 0)
+    return {"flash_attention": TP_STEPS * attention * 2,
+            "ssd_scan": TP_STEPS * mamba * 2}
+
+
+def phase_tp_train(arch: str, phase: str) -> dict:
+    """``arch`` at full width, TP_LAYERS deep, over each of TP_MESHES (see
+    ``sharded_train``).  Returns the flash launches by mesh and rank."""
+    return {key: [n["flash_attention"] for n in by_rank]
+            for key, by_rank in sharded_train(
+                phase, [(dims, (arch,)) for dims in TP_MESHES[arch]]
+            )[arch].items()}
+
+
+def phase_cp_train() -> dict:
+    """The context-parallel Mamba2 block: mamba2-2.7b 4 layers deep over
+    (1, 1), (1, 2) and (1, 4), zamba2-2.7b one group (6 layers) over (1,
+    2), each with its one-process step; the ranks of one world run both
+    archs in turn.  Returns the launches by arch, mesh and rank."""
+    return sharded_train("cp_train", [
+        ((1, 1), (SSM_ARCH, HYBRID_ARCH)), ((1, 2), (SSM_ARCH, HYBRID_ARCH)),
+        ((1, 4), (SSM_ARCH,))])
+
+
+def sharded_train(phase: str, worlds: list) -> dict:
+    """Each of ``worlds`` (a mesh and the archs its ranks train on it) at
+    full width, TP_LAYERS deep, seq 2048, batch 4, remat full, bf16, the
+    ``train`` rules: one NCCL rank at (1, 1), which also takes the
+    one-process step, then gloo ranks sharing the card.  Every rank's
+    losses within TP_TOL of the one-process step's, every self-attention
+    call and every Mamba2 layer's scan through its kernel on every rank
+    (``expected_launches``), the attested first step's collectives (dense:
+    no all-to-all; moe: six a layer, two forward, two recomputed, two
+    backward; ssm and hybrid under a model axis: the halo's
+    collective-permute and the all-gathers, no all-to-all), and but for
+    moe step 1's gradients, update and grad norm against the one-process
+    step's.  Returns the launches by arch, mesh and rank."""
+    launches: dict = {}
+    one: dict = {}
     with tempfile.TemporaryDirectory() as tmp:
-        one = None
-        for dims in TP_MESHES[arch]:
+        for dims, archs in worlds:
             world = dims[0] * dims[1]
             backend = "nccl" if world == 1 else "gloo"
             key = "x".join(map(str, dims))
-            ranks = run_world(world, backend, Path(tmp), "tp_rank", arch, key)
-            if world == 1:
-                one = ranks[0]["one_process"]
-                check(one["launches"]["flash_attention"] == flash_each,
-                      f"{phase}: one process launched "
-                      f"{one['launches']} (want {flash_each} flash)")
-            got = [res["sharded"] for res in ranks]
-            for rk, res in enumerate(got):
-                err = max(abs(a - b) for a, b in zip(res["losses"],
-                                                     one["losses"]))
-                check(err <= TP_TOL, f"{phase} {key} rank {rk}: losses "
-                      f"{res['losses']} vs one process {one['losses']}")
-                check(res["launches"]["flash_attention"] == flash_each,
-                      f"{phase} {key} rank {rk}: launches "
-                      f"{res['launches']} (want {flash_each} flash)")
-                check(res["losses"] == got[0]["losses"],
-                      f"{phase} {key}: ranks' losses differ")
-            a2a = 0
-            if world > 1:
-                kinds = got[0]["collectives"]
-                a2a = kinds.get("all-to-all", {}).get("count", 0)
-                check({"all-gather", "reduce-scatter"} <= set(kinds)
-                      and a2a == (6 * cfg.n_layers if cfg.family == "moe"
-                                  and dims[1] > 1 else 0)
-                      and got[0]["backends"] == ["gloo"]
-                      and set(got[0]["findings"]) == {"host-transfer"}
-                      and got[0]["staged"] == len(got[0]["findings"]),
-                      f"{phase} {key}: collectives {kinds}, backends "
-                      f"{got[0]['backends']}, findings "
-                      f"{got[0]['findings']}")
-            launches[key] = [res["launches"]["flash_attention"]
-                             for res in got]
-            emit({"phase": phase, "arch": cfg.name, "mesh": list(dims),
-                  "backend": backend, "layers": cfg.n_layers,
-                  "params": cfg.param_count(), "seq": TP_SEQ,
-                  "batch": TP_BATCH, "losses": got[0]["losses"],
-                  "grad_norms": got[0]["grad_norms"],
-                  "one_process_losses": one["losses"],
-                  "one_process_grad_norms": one["grad_norms"],
-                  "max_abs_dloss": max(abs(a - b) for a, b in zip(
-                      got[0]["losses"], one["losses"])),
-                  "ms_per_step_by_rank": [res["ms"] for res in got],
-                  "one_process_ms": one["ms"],
-                  "peak_gb_by_rank": [res["peak_gb"] for res in got],
-                  "flash_launches_by_rank": launches[key],
-                  "collectives": got[0].get("collectives", {}),
-                  "all_to_all_per_layer_forward": a2a // 3 // cfg.n_layers,
-                  "backends": got[0].get("backends", []),
-                  "host_transfer_findings": len(got[0].get("findings", [])),
-                  "step1_grad_rel_err_by_leaf": got[0]["grads"]["by_leaf"],
-                  "step1_grad_rel_err": got[0]["grads"]["rel_err"],
-                  "step1_grad_norm_gathered": got[0]["grads"]["norm"],
-                  "step1_grad_norm_clip": got[0]["grads"]["clip_norm"],
-                  "step1_update_rel_err_by_leaf": got[0]["update"]["by_leaf"],
-                  "step1_update_rel_err": got[0]["update"]["rel_err"],
-                  "step1_update_norm": got[0]["update"]["norm"],
-                  "one_process_step1_update_norm": one["update_norm"]})
-            if cfg.family == "moe":
-                # capacity is per shard, as in the reference: the shards
-                # drop other tokens than one process does, so step 1's
-                # gradients differ by what was dropped (printed, not held)
-                continue
-            grads, update = got[0]["grads"], got[0]["update"]
-            worst = max(grads["by_leaf"], key=grads["by_leaf"].get)
-            check(grads["by_leaf"][worst] <= TP_GRAD_TOL,
-                  f"{phase} {key}: step 1's {worst} gradient is "
-                  f"{grads['by_leaf'][worst]} off the one process's")
-            check(update["rel_err"] <= TP_UPDATE_TOL,
-                  f"{phase} {key}: step 1's update is {update['rel_err']} "
-                  f"off the one process's")
-            for name, norm in (("step", got[0]["grad_norms"][0]),
-                               ("clipping", grads["clip_norm"]),
-                               ("gathered", grads["norm"])):
-                check(abs(norm - one["grad_norms"][0])
-                      <= TP_NORM_TOL * one["grad_norms"][0],
-                      f"{phase} {key}: step 1's grad norm by {name} {norm} "
-                      f"vs one process {one['grad_norms'][0]}")
+            ranks = run_world(world, backend, Path(tmp), "tp_rank",
+                              ",".join(archs), key)
+            for arch in archs:
+                cfg = dataclasses.replace(ALL_ARCHS[arch],
+                                          n_layers=TP_LAYERS[arch])
+                if world == 1:
+                    one[arch] = ranks[0][arch]["one_process"]
+                got = [res[arch]["sharded"] for res in ranks]
+                launches.setdefault(arch, {})[key] = [
+                    {k: res["launches"][k] for k in ("flash_attention",
+                                                     "ssd_scan")}
+                    for res in got]
+                sharded_check(phase, cfg, dims, backend, got, one[arch])
     return launches
+
+
+def sharded_check(phase: str, cfg, dims: tuple, backend: str, got: list,
+                  one: dict) -> None:
+    """``sharded_train``'s checks and line for one arch on one mesh."""
+    key = "x".join(map(str, dims))
+    want = expected_launches(cfg)
+    check(all(one["launches"][k] == n for k, n in want.items()),
+          f"{phase} {cfg.name}: one process launched {one['launches']} "
+          f"(want {want})")
+    for rk, res in enumerate(got):
+        err = max(abs(a - b) for a, b in zip(res["losses"], one["losses"]))
+        check(err <= TP_TOL, f"{phase} {cfg.name} {key} rank {rk}: losses "
+              f"{res['losses']} vs one process {one['losses']}")
+        check(all(res["launches"][k] == n for k, n in want.items()),
+              f"{phase} {cfg.name} {key} rank {rk}: launches "
+              f"{res['launches']} (want {want})")
+        check(res["losses"] == got[0]["losses"],
+              f"{phase} {cfg.name} {key}: ranks' losses differ")
+    a2a = 0
+    cp = cfg.family in ("ssm", "hybrid") and dims[1] > 1
+    if dims[0] * dims[1] > 1:
+        kinds = got[0]["collectives"]
+        a2a = kinds.get("all-to-all", {}).get("count", 0)
+        check({"all-gather", "reduce-scatter"} <= set(kinds)
+              and a2a == (6 * cfg.n_layers if cfg.family == "moe"
+                          and dims[1] > 1 else 0)
+              and ("collective-permute" in kinds) == cp
+              and got[0]["backends"] == ["gloo"]
+              and set(got[0]["findings"]) == {"host-transfer"}
+              and got[0]["send_copies"] == got[0]["sends"]
+              and got[0]["staged"] + got[0]["send_copies"]
+              == len(got[0]["findings"]),
+              f"{phase} {cfg.name} {key}: collectives {kinds}, backends "
+              f"{got[0]['backends']}, findings {got[0]['findings']} "
+              f"({got[0]['staged']} staged collectives, "
+              f"{got[0]['send_copies']} copies for {got[0]['sends']} "
+              f"sends)")
+    emit({"phase": phase, "arch": cfg.name, "mesh": list(dims),
+          "backend": backend, "layers": cfg.n_layers,
+          "params": cfg.param_count(), "seq": TP_SEQ,
+          "batch": TP_BATCH, "losses": got[0]["losses"],
+          "grad_norms": got[0]["grad_norms"],
+          "one_process_losses": one["losses"],
+          "one_process_grad_norms": one["grad_norms"],
+          "max_abs_dloss": max(abs(a - b) for a, b in zip(
+              got[0]["losses"], one["losses"])),
+          "ms_per_step_by_rank": [res["ms"] for res in got],
+          "one_process_ms": one["ms"],
+          "peak_gb_by_rank": [res["peak_gb"] for res in got],
+          "seconds_by_rank": [res["seconds"] for res in got],
+          "flash_launches_by_rank": [res["launches"]["flash_attention"]
+                                     for res in got],
+          "ssd_launches_by_rank": [res["launches"]["ssd_scan"]
+                                   for res in got],
+          "collectives": got[0].get("collectives", {}),
+          "all_to_all_per_layer_forward": a2a // 3 // cfg.n_layers,
+          "backends": got[0].get("backends", []),
+          "host_transfer_findings": len(got[0].get("findings", [])),
+          "host_transfer_send_copies": got[0].get("send_copies", 0),
+          "step1_grad_rel_err_by_leaf": got[0]["grads"]["by_leaf"],
+          "step1_grad_rel_err": got[0]["grads"]["rel_err"],
+          "step1_grad_norm_gathered": got[0]["grads"]["norm"],
+          "step1_grad_norm_clip": got[0]["grads"]["clip_norm"],
+          "step1_update_rel_err_by_leaf": got[0]["update"]["by_leaf"],
+          "step1_update_rel_err": got[0]["update"]["rel_err"],
+          "step1_update_norm": got[0]["update"]["norm"],
+          "one_process_step1_update_norm": one["update_norm"]})
+    if cfg.family == "moe":
+        # capacity is per shard, as in the reference: the shards drop
+        # other tokens than one process does, so step 1's gradients differ
+        # by what was dropped (printed, not held)
+        return
+    grads, update = got[0]["grads"], got[0]["update"]
+    worst = max(grads["by_leaf"], key=grads["by_leaf"].get)
+    check(grads["by_leaf"][worst] <= TP_GRAD_TOL,
+          f"{phase} {cfg.name} {key}: step 1's {worst} gradient is "
+          f"{grads['by_leaf'][worst]} off the one process's")
+    check(update["rel_err"] <= TP_UPDATE_TOL,
+          f"{phase} {cfg.name} {key}: step 1's update is "
+          f"{update['rel_err']} off the one process's")
+    for name, norm in (("step", got[0]["grad_norms"][0]),
+                       ("clipping", grads["clip_norm"]),
+                       ("gathered", grads["norm"])):
+        check(abs(norm - one["grad_norms"][0])
+              <= TP_NORM_TOL * one["grad_norms"][0],
+              f"{phase} {cfg.name} {key}: step 1's grad norm by {name} "
+              f"{norm} vs one process {one['grad_norms'][0]}")
 
 
 # ----------------------------------------------------------------- gather
@@ -4156,6 +4306,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     tp_launches = phase_tp_train(ARCH, "tp_train")
     ep_launches = phase_tp_train(MOE_TRAIN_ARCH, "moe_ep_train")
+    cp_launches = phase_cp_train()
     hh_err, hh = phase_hh_timing(dev)
     epoch_err, epoch = phase_cable_epoch_timing(dev)
     rows = {"paged_attention": (launches["paged_attention"], err, timing),
@@ -4190,7 +4341,16 @@ def main() -> int:
         "vlm_launches": family[VLM_ARCH],
         "encdec_launches": family[ENCDEC_ARCH],
         "tp_train_launches": tp_launches,
-        "moe_ep_train_launches": ep_launches},
+        "moe_ep_train_launches": ep_launches,
+        "cp_train_launches": {
+            arch: {key: [n["flash_attention"] for n in by_rank]
+                       for key, by_rank in by_mesh.items()}
+            for arch, by_mesh in cp_launches.items()
+            if arch == HYBRID_ARCH}},
+        "ssd_scan": {"cp_train_launches": {
+            arch: {key: [n["ssd_scan"] for n in by_rank]
+                       for key, by_rank in by_mesh.items()}
+            for arch, by_mesh in cp_launches.items()}},
         "hh_step": {
         "epoch_kernel": "cable_epoch", "epoch_launches": epoch_launches,
         "epoch_example_launches": {"ring_simulation": examples[
@@ -4220,4 +4380,6 @@ if __name__ == "__main__":
         sys.exit(ring_rank(*sys.argv[2:4]))
     if sys.argv[1:2] == ["tp_rank"]:
         sys.exit(tp_rank(*sys.argv[2:6]))
+    if sys.argv[1:2] == ["profile_pressure"]:
+        sys.exit(profile_pressure())
     sys.exit(main())

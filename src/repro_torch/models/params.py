@@ -21,8 +21,9 @@ From the declaration:
   * ``partition(specs)`` is each leaf's resolved spec under the bound
     rule set (``launch.bind.shard`` cuts a full tree by it to this rank's
     slices: a full tree from ``from_jax``, so the reference's weights
-    cross over sharded), and ``gathered`` puts one layer's slices in the
-    layout the training step computes in.
+    cross over sharded), ``gathered`` puts one layer's slices in the
+    layout the training step computes in, and ``whole`` gathers them
+    whole (the context-parallel Mamba2 block's layout).
 """
 from __future__ import annotations
 
@@ -87,15 +88,11 @@ def partition(specs: Any) -> Any:
     return tree_map(lambda s: resolve(s.axes, s.shape), specs)
 
 
-def gathered(tree: Any, specs: Any, *, stacked: bool = False) -> Any:
-    """Slices in the layout the training step computes in: each dimension
-    sharded over axes other than ``model`` (the FSDP axes) all-gathered,
-    the ``model``-sharded dimensions kept; the backward reduce-scatters
-    the gradient, and sums it over the axes the leaf is replicated on,
-    which split the step's computation too (the batch over the data axes,
-    the sequence and the heads over ``model``).  ``stacked``: ``tree`` is
-    one layer of ``[L, ...]``-stacked ``specs``.  The identity with no
-    context bound."""
+def _gather(tree: Any, specs: Any, stacked: bool, keep_model: bool) -> Any:
+    """``gathered`` (``keep_model``) and ``whole``: each leaf's sharded
+    dimensions all-gathered over their axes, ``model`` kept out where
+    ``keep_model``; a sum of the gradient over the axes the leaf is
+    replicated on.  The identity with no context bound."""
     ctx = _current()
     if ctx is None:
         return tree
@@ -106,13 +103,39 @@ def gathered(tree: Any, specs: Any, *, stacked: bool = False) -> Any:
         t = comm.sum_grads(t, ctx.group([a for a in ctx.mesh.mesh_dim_names
                                          if a not in used]))
         for dim, part in enumerate(parts):
-            fsdp = [a for a in _axes(part) if a != "model"]
-            if fsdp and "model" in _axes(part):
-                raise ValueError(f"{spec.axes}: a dimension over both "
-                                 f"model and {fsdp} has no compute layout")
-            t = comm.all_gather(t, dim, ctx.group(fsdp))
+            axes = list(_axes(part))
+            if keep_model and "model" in axes:
+                if len(axes) > 1:
+                    raise ValueError(f"{spec.axes}: a dimension over both "
+                                     f"model and {axes} has no compute "
+                                     f"layout")
+                continue
+            t = comm.all_gather(t, dim, ctx.group(axes))
         return t
     return tree_map2(one, tree, specs)
+
+
+def gathered(tree: Any, specs: Any, *, stacked: bool = False) -> Any:
+    """Slices in the layout the training step computes in: each dimension
+    sharded over axes other than ``model`` (the FSDP axes) all-gathered,
+    the ``model``-sharded dimensions kept; the backward reduce-scatters
+    the gradient, and sums it over the axes the leaf is replicated on,
+    which split the step's computation too (the batch over the data axes,
+    the sequence and the heads over ``model``).  ``stacked``: ``tree`` is
+    one layer of ``[L, ...]``-stacked ``specs``.  The identity with no
+    context bound."""
+    return _gather(tree, specs, stacked, keep_model=True)
+
+
+def whole(tree: Any, specs: Any, *, stacked: bool = False) -> Any:
+    """Every leaf whole on every rank: ``gathered`` with the
+    ``model``-sharded dimensions all-gathered too, in rank order (the
+    reference's ``PartitionSpec()`` in-spec of its context-parallel Mamba2
+    block, whose ranks each run the whole block on a sequence shard).  The
+    backward reduce-scatters over every axis it gathered, which sums the
+    ranks' parts of the gradient once, and sums it over the axes the leaf
+    is replicated on, as ``gathered`` does."""
+    return _gather(tree, specs, stacked, keep_model=False)
 
 
 def shard_groups(specs: Any) -> Any:

@@ -26,13 +26,17 @@ walks them, each leaf split once with ``unbind`` so the backward stacks
 the layers' gradients in one step.  Remat wraps each layer, each call of
 the shared block and each cross block, as the reference's scans do.
 
-Under a bound mesh (the training step's, dense and moe) each rank runs its
-shards: ``P.gathered`` all-gathers each layer's FSDP dimensions inside
-the layer's remat (so the backward gathers them again), the residual
-stream between blocks is this rank's ``[B/dp, S/tp, D]`` (``_res``: the
-reference's ``act_res`` sequence sharding, checked by ``constrain``), and
-``moe_aux`` is the mean over every rank's shard.  The other families
-raise there: their blocks have no sharded form in the port yet.
+Under a bound mesh (the training step's: dense, moe, ssm and hybrid)
+each rank runs its shards: ``P.gathered`` all-gathers each layer's FSDP
+dimensions inside the layer's remat (so the backward gathers them again),
+the residual stream between blocks is this rank's ``[B/dp, S/tp, D]``
+(``res``: the reference's ``act_res`` sequence sharding, checked by
+``constrain``), and ``moe_aux`` is the mean over every rank's shard.  A
+Mamba2 layer takes its weights whole (``P.whole``) into
+``ssm.mamba_block_cp``, the context-parallel block; zamba2's shared block
+gathers the shared weights at each use and runs attention and SwiGLU
+tensor-parallel, as a dense layer does.  vlm and encdec raise there:
+their blocks have no sharded form in the port yet.
 """
 from __future__ import annotations
 
@@ -47,15 +51,14 @@ from repro_torch.models.attention import full_attention
 from repro_torch.models.layers import (embed_tokens, gelu_mlp, logits_from,
                                        rmsnorm, sinusoidal_positions, swiglu)
 from repro_torch.models.moe import moe_ffn
-from repro_torch.models.ssm import mamba_block
+from repro_torch.models.ssm import cp_refusal, mamba_block_cp
 from repro_torch.parallel import comm
 from repro_torch.parallel.ctx import (_axes, _current, carry, constrain,
                                       resolve)
 
 # the slice of the port that will shard each other family's blocks
-_CP = "ssm.mamba_block_cp (the reference's context-parallel Mamba2 block)"
 _CROSS = "vlm and encdec under a mesh"
-UNSHARDED = {"ssm": _CP, "hybrid": _CP, "vlm": _CROSS, "encdec": _CROSS}
+UNSHARDED = {"vlm": _CROSS, "encdec": _CROSS}
 
 
 def _remat(fn: Callable, mode: str) -> Callable:
@@ -85,7 +88,8 @@ def _moe_block(cfg: ModelConfig, p: dict, x: torch.Tensor
 
 
 def _ssm_block(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    return x + mamba_block(cfg, p["mamba"], rmsnorm(p["ln"], x, cfg.norm_eps))
+    return x + mamba_block_cp(cfg, p["mamba"],
+                              rmsnorm(p["ln"], x, cfg.norm_eps))
 
 
 def _shared_block(cfg: ModelConfig, p: dict, site_norm: torch.Tensor,
@@ -161,15 +165,17 @@ def _encdec_forward(cfg: ModelConfig, params: dict, batch: dict,
 def check_mesh(cfg: ModelConfig, rows: int, seq: int) -> None:
     """Raise ``ValueError`` unless the bound mesh can run ``cfg``'s step on
     ``rows`` local batch rows of ``seq`` tokens as the reference shards
-    it: dense and moe only; a ``model`` axis only with the residual stream
-    sequence-sharded (``act_res``) and the sequence, ``d_ff``, the vocab
-    and the experts split evenly over it; the batch split over the data
-    axes.  Where the reference would replicate an uneven dimension, the
-    port refuses rather than replicate quietly."""
+    it: dense, moe, ssm and hybrid; a ``model`` axis only with the
+    residual stream sequence-sharded (``act_res``) and the sequence,
+    ``d_ff``, the vocab and the experts split evenly over it, and for ssm
+    and hybrid the context-parallel block's condition (``cp_refusal``);
+    the batch split over the data axes.  Where the reference would
+    replicate an uneven dimension or the scan, the port refuses rather
+    than replicate quietly."""
     ctx = _current()
     if ctx is None or ctx.mesh.size() == 1:
         return
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family in UNSHARDED:
         raise ValueError(
             f"{cfg.name} ({cfg.family}) has no sharded step in the port: a "
             f"mesh of {tuple(ctx.mesh.shape)} waits for the slice that "
@@ -188,6 +194,11 @@ def check_mesh(cfg: ModelConfig, rows: int, seq: int) -> None:
             f"a model axis of {tp} shards the step only with the residual "
             f"stream sequence-sharded over it (rules with act_res=model, "
             f"a sequence that splits): seq {seq}")
+    if cfg.family in ("ssm", "hybrid"):
+        why = cp_refusal(cfg, seq, tp)
+        if why is not None:
+            raise ValueError(f"{cfg.name} on a mesh of "
+                             f"{tuple(ctx.mesh.shape)}: {why}")
     for spec in P.leaves(P.param_specs(cfg)):
         even = resolve(spec.axes, spec.shape)
         for name, part, kept in zip(spec.axes, resolve(spec.axes), even):
@@ -222,6 +233,8 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
         return constrain(x, ("act_batch", "act_res", None), res_shape)
 
     def layer_tree(p: dict) -> dict:
+        if fam in ("ssm", "hybrid"):    # ln has no sharded dimension
+            return P.whole(p, specs.get("layers"), stacked=True)
         return P.gathered(p, specs.get("layers"), stacked=True)
 
     metrics: dict[str, torch.Tensor] = {}
@@ -257,16 +270,22 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
         for i in range(cfg.n_layers):
             x = res(body(x, per_layer(i)))
     else:
-        body = _remat(lambda x, p: _ssm_block(cfg, p, x), remat)
+        body = _remat(lambda x, p: _ssm_block(cfg, layer_tree(p), x), remat)
         groups = cfg.n_layers // cfg.attn_every
         per = cfg.attn_every - 1
-        shared = _remat(lambda x, sn: _shared_block(cfg, params["shared"],
-                                                    sn, x), remat)
+
+        def shared_block(x: torch.Tensor, sn: torch.Tensor) -> torch.Tensor:
+            # the shared weights gathered at each use, each group's site
+            # norm's gradient summed over the ranks
+            return _shared_block(
+                cfg, P.gathered(params["shared"], specs.get("shared")),
+                P.gathered(sn, specs.get("site_norm"), stacked=True), x)
+        shared = _remat(shared_block, remat)
         site_norms = params["site_norm"].unbind(0)
         for g in range(groups):
             for j in range(per):
-                x = body(x, per_layer(g * per + j))
-            x = shared(x, site_norms[g])
+                x = res(body(x, per_layer(g * per + j)))
+            x = res(shared(x, site_norms[g]))
     x = rmsnorm(P.gathered(params["final_norm"], specs.get("final_norm")),
                 x, cfg.norm_eps)
     return logits_from(embed, cfg, x), metrics

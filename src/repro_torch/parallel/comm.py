@@ -10,6 +10,10 @@ each with its transpose as its backward:
 * ``all_to_all`` (forward) / the same exchange (backward): chunk ``j`` of
   dim 0 goes to the group's rank ``j``, the output's chunk ``i`` came from
   rank ``i``;
+* ``shift``: rank ``i`` of the group sends to rank ``i + 1`` (send/recv,
+  the reference's ``ppermute`` over ``[(i, i + 1)]``), rank 0 receives
+  zeros; the backward is the reverse shift, and the last rank's cotangent
+  is dropped (no rank took its tensor);
 * ``all_reduce``: a sum forward, the identity backward.  Its consumers
   run on every rank of the group alike (the loss, its statistics), so
   each rank's cotangent is already the whole one;
@@ -18,11 +22,14 @@ each with its transpose as its backward:
   sequence shards, the router on its tokens) gets a part of its gradient
   on each rank.
 
-Each is the identity where the group is ``None`` (a group of one rank).
+Each but ``shift`` is the identity where the group is ``None`` (a group
+of one rank).
 The payload keeps the tensor's dtype: bf16 activations and gradients
-travel as bf16.  gloo takes CUDA tensors in all of them and stages them
-through host memory inside the op; the attested program reports that as a
-``host-transfer`` (``core.attest``).
+travel as bf16.  gloo takes CUDA tensors in all of them but ``shift`` and
+stages them through host memory inside the op; ``shift`` copies a CUDA
+tensor to the host itself, since gloo's send and recv take host memory
+only.  The attested program reports either as a ``host-transfer``
+(``core.attest``).
 """
 from __future__ import annotations
 
@@ -53,6 +60,32 @@ def sum_all(x: torch.Tensor, group) -> torch.Tensor:
     out = x.clone()
     dist.all_reduce(out, group=group)
     return out
+
+
+def pass_on(x: torch.Tensor, group, step: int) -> torch.Tensor:
+    """Group rank ``i`` sends ``x`` to rank ``i + step`` and receives from
+    rank ``i - step`` (no autograd; ``step`` is 1 or -1, no wrap-around):
+    the received tensor, zeros where no rank sends to this one.  The sends
+    and receives go out together (``batch_isend_irecv``), so no order of
+    the ranks deadlocks.  gloo's send and recv read and write host memory
+    only, so a device tensor travels over gloo through a host copy made
+    here."""
+    staged = x.device.type != "cpu" and dist.get_backend(group) == "gloo"
+    me, n = group.rank(), group.size()
+    sends, takes = 0 <= me + step < n, 0 <= me - step < n
+    out = torch.zeros(x.shape, dtype=x.dtype,
+                      device="cpu" if staged and takes else x.device)
+    ops = []
+    if sends:
+        ops.append(dist.P2POp(dist.isend,
+                              (x.cpu() if staged else x).contiguous(),
+                              dist.get_global_rank(group, me + step), group))
+    if takes:
+        ops.append(dist.P2POp(dist.irecv, out,
+                              dist.get_global_rank(group, me - step), group))
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out.to(x.device)
 
 
 def exchange(x: torch.Tensor, group) -> torch.Tensor:
@@ -96,6 +129,17 @@ class _AllToAll(torch.autograd.Function):
         return exchange(g, ctx.group), None
 
 
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return pass_on(x, group, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return pass_on(g, ctx.group, -1), None
+
+
 class _AllReduce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -127,6 +171,15 @@ def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
 
 def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     return x if group is None else _AllToAll.apply(x, group)
+
+
+def shift(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` of the group's previous rank (zeros on rank 0).  A group of
+    one rank has no previous rank to take from, so ``group`` must be a
+    group of two or more."""
+    if group is None:
+        raise ValueError("shift needs a group of two or more ranks")
+    return _Shift.apply(x, group)
 
 
 def all_reduce(x: torch.Tensor, group) -> torch.Tensor:

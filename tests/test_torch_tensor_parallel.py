@@ -27,7 +27,10 @@ with its reason:
   attention on each rank's heads, the expert-parallel MoE) against the
   reference's under the same mesh, 2e-5; ``pad_group_dim`` exactly;
 * the attested steps' collectives and findings, the checkpoint restored
-  across meshes (2e-5), and the other families' refusals.
+  across meshes (2e-5), and the refusals: vlm and encdec under any model
+  axis, ssm and hybrid at a sequence outside the context-parallel
+  block's condition (``tests/test_torch_context_parallel.py`` holds them
+  where it holds).
 """
 import dataclasses
 import os
@@ -331,12 +334,17 @@ def test_sharded_save_fails_on_every_rank_with_its_writer(runs):
 
 @pytest.mark.parametrize("family", sorted(R.REFUSED))
 def test_other_families_refuse_a_model_axis(runs, family):
+    """vlm and encdec refuse any model axis; ssm and hybrid run under one
+    through the context-parallel block, and refuse a sequence outside its
+    condition (``R.REFUSED_SEQ``), naming the condition."""
     ranks, _, _ = runs
     message = ranks[2][0]["refusals"][family]
     assert message is not None and "(1, 2)" in message
-    slice_name = ("mamba_block_cp" if family in ("ssm", "hybrid")
-                  else "vlm and encdec under a mesh")
-    assert slice_name in message
+    if family in ("ssm", "hybrid"):
+        assert "mamba_block_cp" in message
+        assert "24 tokens to be a multiple of its scan chunk" in message
+    else:
+        assert "vlm and encdec under a mesh" in message
 
 
 @pytest.mark.cuda
